@@ -1,11 +1,13 @@
-"""SMPL-family body model data (counterpart of
-``avatar_tpu/core/model.py::AvatarModel``).
+"""SMPL-family body model data and the avatar's pose/shape state
+(counterpart of ``avatar_tpu/core/model.py``).
 
-Loaded on the host with numpy (float64 masters, from ``model.npz`` or from
-in-memory arrays) and exposed to the tensor code as an :class:`LBSParams`
-of torch tensors on ``device``, plus static metadata (``parents`` tuple,
-``faces``).  The reference's legacy text model format and the stateful
-``Avatar`` wrapper are not ported yet (see ROADMAP.md).
+``AvatarModel`` is loaded on the host with numpy (float64 masters, from
+``model.npz`` or from in-memory arrays) and exposed to the tensor code as
+an :class:`LBSParams` of torch tensors on ``device``, plus static metadata
+(``parents`` tuple, ``faces``).  ``Avatar`` is the host-side state (API
+parity with the C++ class: update / randomize / smplParams / pdf /
+alignToJoints); its LBS runs on the model's device.  The reference's
+legacy text model format is not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -16,16 +18,54 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from avatar_tpu_torch.core.lbs import LBSParams
+from avatar_tpu_torch.core import rotation
+from avatar_tpu_torch.core.lbs import LBSParams, lbs
 from avatar_tpu_torch.core.pose_prior import GaussianMixture
+
+
+class SmplJoint:
+    """SMPL joint ids in BFS order (reference Avatar.h:27-59)."""
+
+    ROOT_PELVIS = 0
+    L_HIP = 1
+    R_HIP = 2
+    SPINE1 = 3
+    L_KNEE = 4
+    R_KNEE = 5
+    SPINE2 = 6
+    L_ANKLE = 7
+    R_ANKLE = 8
+    SPINE3 = 9
+    L_FOOT = 10
+    R_FOOT = 11
+    NECK = 12
+    L_COLLAR = 13
+    R_COLLAR = 14
+    HEAD = 15
+    L_SHOULDER = 16
+    R_SHOULDER = 17
+    L_ELBOW = 18
+    R_ELBOW = 19
+    L_WRIST = 20
+    R_WRIST = 21
+    L_HAND = 22
+    R_HAND = 23
+    COUNT = 24
+
+    NAMES = [
+        "PELVIS", "L_HIP", "R_HIP", "SPINE1", "L_KNEE", "R_KNEE", "SPINE2",
+        "L_ANKLE", "R_ANKLE", "SPINE3", "L_FOOT", "R_FOOT", "NECK", "L_COLLAR",
+        "R_COLLAR", "HEAD", "L_SHOULDER", "R_SHOULDER", "L_ELBOW", "R_ELBOW",
+        "L_WRIST", "R_WRIST", "L_HAND", "R_HAND",
+    ]
 
 
 class AvatarModel:
     """Attributes (numpy float64 masters; torch mirrors in ``.params``):
     v_template [P,3], shapedirs [P,3,K], weights_np [P,J], joint_reg_np
     [J,P], parent [J] (parent[0] == -1), faces [F,3], joint_shape_reg_base
-    [J,3], joint_shape_reg [J,3,K], main_joint [P], ancestor_mask [J,J],
-    pose_prior (GaussianMixture or None)."""
+    [J,3], joint_shape_reg [J,3,K], initial_joint_pos [J,3], main_joint
+    [P], ancestor_mask [J,J], pose_prior (GaussianMixture or None)."""
 
     def __init__(self, model_dir: str = "", dtype=torch.float32,
                  device: str | torch.device = "cpu", *,
@@ -60,6 +100,7 @@ class AvatarModel:
             self.joint_shape_reg_base = self.joint_reg_np @ self.v_template
             self.joint_shape_reg = np.einsum(
                 "jp,pck->jck", self.joint_reg_np, self.shapedirs)
+        self.initial_joint_pos = self.joint_shape_reg_base.copy()
 
         # main assigned joint per point: the model part labels
         # (reference AvatarOptimizer.cpp:1227-1243)
@@ -91,6 +132,9 @@ class AvatarModel:
     def num_shape_keys(self) -> int:
         return int(self.shapedirs.shape[2])
 
+    def num_faces(self) -> int:
+        return int(self.faces.shape[0])
+
 
 def _load_model_dir(model_path: str) -> dict:
     npz_path = os.path.join(model_path, "model.npz")
@@ -117,3 +161,177 @@ def _load_npz(npz_path: str) -> dict:
                     weights=np.asarray(npz["weights"], np.float64),
                     shapedirs=np.asarray(npz["shapedirs"], np.float64),
                     use_jsr=True)
+
+
+def _rot_between(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Rotation matrix taking direction a to direction b
+    (Eigen Quaterniond::FromTwoVectors equivalent)."""
+    a = a / (np.linalg.norm(a) + 1e-12)
+    b = b / (np.linalg.norm(b) + 1e-12)
+    v = np.cross(a, b)
+    c = float(np.dot(a, b))
+    if c < -1.0 + 1e-9:
+        # opposite: rotate pi about any orthogonal axis
+        axis = np.cross(a, [1.0, 0.0, 0.0])
+        if np.linalg.norm(axis) < 1e-6:
+            axis = np.cross(a, [0.0, 1.0, 0.0])
+        axis /= np.linalg.norm(axis)
+        K = np.array([[0, -axis[2], axis[1]],
+                      [axis[2], 0, -axis[0]],
+                      [-axis[1], axis[0], 0]])
+        return np.eye(3) + 2.0 * K @ K
+    K = np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]])
+    return np.eye(3) + K + K @ K / (1.0 + c)
+
+
+def _so3_exp_f32(aa: np.ndarray) -> np.ndarray:
+    """Rodrigues in float32, as the reference evaluates its host draws
+    (``jnp.asarray`` of a float64 array is float32 there)."""
+    return rotation.so3_exp(torch.as_tensor(
+        np.asarray(aa), dtype=torch.float32)).numpy()
+
+
+class Avatar:
+    """Pose/shape state of one avatar instance (reference Avatar,
+    Avatar.h:155).
+
+    State: ``w`` [K] shape weights, ``p`` [3] root position, ``r``
+    [J,3,3] local joint rotations (numpy float64 on the host).
+    ``update()`` runs LBS on the model's device and fills ``cloud`` [P,3],
+    ``joint_pos`` [J,3] and ``joint_rot_global`` [J,3,3] (numpy).
+    """
+
+    def __init__(self, model: AvatarModel):
+        self.model = model
+        self.w = np.zeros(model.num_shape_keys())
+        self.p = np.zeros(3)
+        self.r = np.tile(np.eye(3), (model.num_joints(), 1, 1))
+        self.cloud: Optional[np.ndarray] = None
+        self.joint_pos: Optional[np.ndarray] = None
+        self.joint_rot_global: Optional[np.ndarray] = None
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=self.model.dtype,
+                               device=self.model.device)
+
+    def update(self) -> None:
+        """LBS forward pass (reference Avatar.cpp:22-75)."""
+        m = self.model
+        cloud, tg, Rg, _ = lbs(m.params, m.parents, self._tensor(self.w),
+                               self._tensor(self.p), self._tensor(self.r),
+                               use_jsr=m.use_joint_shape_regressor)
+        self.cloud = cloud.cpu().numpy()
+        self.joint_pos = tg.cpu().numpy()
+        self.joint_rot_global = Rg.cpu().numpy()
+
+    def smpl_params(self) -> np.ndarray:
+        """Axis-angle export of the non-root rotations (Avatar.cpp:128-137)."""
+        aa = rotation.so3_log(self._tensor(self.r[1:]))
+        return aa.cpu().numpy().astype(np.float64).reshape(-1)
+
+    smplParams = smpl_params
+
+    def pdf(self) -> float:
+        """GMM likelihood of the current pose (Avatar.cpp:139)."""
+        prior = self.model.pose_prior
+        if prior is None:
+            raise ValueError("model has no pose prior")
+        x = torch.as_tensor(self.smpl_params(), dtype=prior.means.dtype,
+                            device=prior.means.device)
+        return float(prior.pdf(x))
+
+    def randomize(self, randomize_pose: bool = True,
+                  randomize_shape: bool = True,
+                  randomize_root_pos_rot: bool = True,
+                  rng: Optional[np.random.Generator] = None,
+                  seed: Optional[int] = None) -> None:
+        """Random pose (GMM sample), shape (N(0,1)), root box + facing
+        rotation; reference Avatar.cpp:77-126.  Draws from ``rng`` in the
+        reference's order, so a seed gives the reference's avatar."""
+        if rng is None:
+            rng = np.random.default_rng(seed)
+        model = self.model
+        if randomize_shape:
+            self.w = rng.standard_normal(model.num_shape_keys())
+        if randomize_pose and model.pose_prior is not None:
+            gm = model.pose_prior._np
+            comp = rng.choice(gm["weights"].shape[0],
+                              p=gm["weights"] / gm["weights"].sum())
+            z = rng.standard_normal(gm["means"].shape[1])
+            samp = gm["means"][comp] + gm["cov_cho"][comp] @ z
+            aa = samp.reshape(-1, 3)
+            self.r[1:1 + aa.shape[0]] = _so3_exp_f32(aa)
+        if randomize_root_pos_rot:
+            self.p = np.array([
+                rng.uniform(-1.0, 1.0),
+                rng.uniform(-0.5, 0.5),
+                rng.uniform(2.2, 4.5),
+            ])
+            angle_up = rng.uniform(-np.pi / 3, np.pi / 3) + np.pi
+            theta = rng.uniform(0, 2 * np.pi)
+            phi = rng.uniform(-np.pi / 2, np.pi / 2)
+            axis_perturb = np.array([
+                np.sin(phi) * np.cos(theta), np.cos(phi),
+                np.sin(phi) * np.sin(theta),
+            ])
+            angle_perturb = rng.normal(0.0, 0.2)
+            up = _so3_exp_f32([0.0, angle_up, 0.0])
+            pert = _so3_exp_f32(axis_perturb * angle_perturb)
+            self.r[0] = pert @ up
+
+    def random_mocap_pose(self, pose_seq=None,
+                          rng: Optional[np.random.Generator] = None) -> None:
+        """Pose from a random mocap-bank frame (reference
+        Avatar::randomMocapPose).  The pose-sequence bank is not ported yet,
+        so without one this raises as the reference does with no bank."""
+        if pose_seq is None or pose_seq.num_frames == 0:
+            raise FileNotFoundError(
+                "no mocap bank available (data/avatar-mocap/cmu-mocap.dat)")
+        rng = rng or np.random.default_rng()
+        pose_seq.pose_avatar(self, int(rng.integers(pose_seq.num_frames)))
+
+    randomMocapPose = random_mocap_pose
+
+    def align_to_joints(self, pos: np.ndarray) -> None:
+        """Heuristic pose fit so joints roughly match ``pos`` [J,3]
+        (reference Avatar.cpp:141-193)."""
+        model = self.model
+        init = model.initial_joint_pos
+        J = model.num_joints()
+        assert pos.shape[0] == J
+        vr = init[SmplJoint.SPINE1] - init[SmplJoint.ROOT_PELVIS]
+        vrt = pos[SmplJoint.SPINE1] - pos[SmplJoint.ROOT_PELVIS]
+        if not np.isnan(pos[0, 0]):
+            self.p = pos[0].copy()
+        if not (np.isnan(vr[0]) or np.isnan(vrt[0])):
+            self.r[0] = _rot_between(vr, vrt)
+        else:
+            self.r[0] = np.eye(3)
+
+        rot_trans = np.zeros((J, 3, 3))
+        rot_trans[0] = self.r[0]
+        scale_avg = 0.0
+        for i in range(1, J):
+            pi = model.parent[i]
+            scale_avg += (np.linalg.norm(pos[i] - pos[pi]) /
+                          (np.linalg.norm(init[i] - init[pi]) + 1e-12))
+        scale_avg /= J - 1.0
+        base_scale = np.linalg.norm(
+            init[SmplJoint.SPINE2] - init[SmplJoint.ROOT_PELVIS]) * (
+            scale_avg - 1.0)
+        PC1_DIST_FACT = 32.0
+        self.w[0] = base_scale * PC1_DIST_FACT
+        if np.isnan(self.w[0]):
+            self.w[0] = 1.5
+        for i in range(1, J):
+            pi = model.parent[i]
+            rot_trans[i] = rot_trans[pi]
+            if not np.isnan(pos[i, 0]):
+                vv = init[i] - init[pi]
+                vvt = pos[i] - pos[pi]
+                rot_trans[i] = _rot_between(vv, vvt)
+                self.r[i] = rot_trans[pi].T @ rot_trans[i]
+            else:
+                self.r[i] = np.eye(3)
+
+    alignToJoints = align_to_joints

@@ -46,6 +46,7 @@ class GaussianMixture:
         self.means = t(means)
         self.prec_cho = t(prec_cho)
         self.consts_log = t(consts_log)
+        self.consts = torch.exp(self.consts_log)
 
     @classmethod
     def load(cls, path: str, dtype=torch.float32,
@@ -65,11 +66,27 @@ class GaussianMixture:
         covs = a[C + C * D:C + C * D + C * D * D].reshape(C, D, D)
         return cls(weights, means, covs, dtype, device)
 
+    def _whiten(self, x: torch.Tensor) -> torch.Tensor:
+        """[..., D] -> [..., C, D]: L_c^T (x - mu_c) for every component."""
+        return torch.einsum("cdk,...cd->...ck", self.prec_cho,
+                            x[..., None, :] - self.means)
+
+    def component_energies(self, x: torch.Tensor) -> torch.Tensor:
+        """[..., D] -> [..., C]: |L_c^T (x - mu_c)|^2 * 0.5 - consts_log[c],
+        the quantity minimized to choose the residual component."""
+        wh = self._whiten(x)
+        return 0.5 * torch.sum(wh * wh, dim=-1) - self.consts_log
+
+    def pdf(self, x: torch.Tensor) -> torch.Tensor:
+        """Mixture density at x, with the reference's minDet normalization
+        (GaussianMixture.cpp:84-93)."""
+        wh = self._whiten(x)
+        quad = torch.sum(wh * wh, dim=-1)
+        return torch.sum(self.consts * torch.exp(-0.5 * quad), dim=-1)
+
     def residual(self, x: torch.Tensor):
         """Whitened min-component residual: [..., D] -> ([..., D+1], comp)."""
-        diff = x[..., None, :] - self.means                      # [..., C, D]
-        wh = torch.einsum("cdk,...cd->...ck", self.prec_cho, diff) * \
-            math.sqrt(0.5)
+        wh = self._whiten(x) * math.sqrt(0.5)                    # [..., C, D]
         energies = torch.sum(wh * wh, dim=-1) - self.consts_log
         comp = torch.argmin(energies, dim=-1)
         idx = comp[..., None, None].expand(*comp.shape, 1, wh.shape[-1])

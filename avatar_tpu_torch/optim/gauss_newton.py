@@ -445,3 +445,190 @@ def fit(ctx: FitContext, parents: Tuple[int, ...], data_pts: torch.Tensor,
     theta = Theta(p=theta.p, rots=rots_c, w=theta.w)
     return theta, FitDiag(cost=cost, n_matched=n_matched,
                           inner_iters=accepted, part_counts=part_counts)
+
+
+def fit_refine(ctx: FitContext, parents: Tuple[int, ...],
+               ring_faces: torch.Tensor, data_pts: torch.Tensor,
+               data_part: torch.Tensor, theta0: Theta, beta_pose,
+               beta_shape, n_steps: int = 10, use_jsr: bool = True,
+               enable_occlusion: bool = True, chunk: int = 512,
+               num_parts: int = 0, plane_weight=1.0, point_weight=0.2,
+               function_tolerance: float = 1e-7, huber_k=4.0, trim_k=20.0,
+               wild: int = -1000, wild_gate2=None,
+               freeze_shape: bool = False) -> Tuple[Theta, FitDiag]:
+    """High-exactness fit: point-to-MESH ICP (see the reference's
+    docstring).  Each data point matches the closest point on the one-ring
+    surface of its NN vertex (``optim/surface.py``); residuals are
+    r_n = sum_i b_i x_{v_i} - d_n and its face-normal component.
+
+    ``ring_faces`` comes from ``surface.vertex_face_rings``.  The NN plan
+    is over the full, unsorted model axis (``mperm``), as the reference
+    builds it.  Unlike the reference, ``part_counts`` excludes wildcard
+    matches (label ``num_parts``), as ``fit`` does.
+    """
+    from avatar_tpu_torch.optim.surface import surface_correspond
+
+    dtype, dev = data_pts.dtype, data_pts.device
+    P = ctx.lbs.weights.shape[0]
+    f = lambda v: torch.as_tensor(v, dtype=dtype, device=dev)
+    w_pt, w_pl = f(point_weight), f(plane_weight)
+    huber_k, trim_k = f(huber_k), f(trim_k)
+
+    theta0 = Theta(p=theta0.p, rots=rotation.quat_to_mat(
+        rotation.mat_to_quat(theta0.rots)), w=theta0.w)
+    if ctx.n_rest is not None:
+        n_rest = ctx.n_rest
+    else:
+        shaped0, _ = shape_fwd(ctx.lbs, theta0.w, use_jsr)
+        n_rest = _vertex_normals(shaped0, ctx.faces)
+    occ_margin = 0.2
+
+    NP = num_parts or len(parents)
+    plan = correspond.make_nn_plan(data_pts, data_part, ctx.model_part,
+                                   num_parts=NP, tile_n=256, chunk=chunk)
+    data_pts = plan.dpts
+    data_part = plan.dpart
+    N = data_pts.shape[0]
+    J_all = len(parents)
+    D_all = 3 + 3 * J_all + ctx.lbs.shapedirs.shape[2]
+
+    def surf(xf, tri_idx, bary):
+        return torch.sum(bary[..., None] * xf[tri_idx], dim=1)
+
+    def cost_at(th, xf, tri_idx, bary, fnrm, wgt, bp, bs):
+        rr = surf(xf, tri_idx, bary) - data_pts
+        c_pt = 0.5 * torch.sum(wgt * torch.sum(rr * rr, -1))
+        c_pl = 0.5 * torch.sum(wgt * torch.sum(fnrm * rr, -1) ** 2)
+        return w_pt ** 2 * c_pt + w_pl ** 2 * c_pl + _prior_cost(ctx, th, bp,
+                                                                 bs)
+
+    def linearize(theta, fwd, corr_prev):
+        """Surface correspondence, robust weights, the mass-lumped gram,
+        the exact gradient and the cost, all at the current iterate."""
+        x, shaped, j_init, Rg, tg, A = fwd
+        vn = torch.einsum("pab,pb->pa", A, n_rest)
+        vn = vn / torch.linalg.norm(vn, dim=-1, keepdim=True).clamp(min=1e-12)
+        if enable_occlusion:
+            vis = vn[:, 2] < occ_margin
+            front = occ_margin
+        else:
+            vis = torch.ones(P, dtype=torch.bool, device=dev)
+            front = None
+        if ctx.cand_mask is not None:
+            vis = vis & ctx.cand_mask
+        st = correspond.find_nn_stats_planned(plan, x, vis, wild=wild,
+                                              wild_gate2=wild_gate2)
+        tri_idx, bary, fnrm, valid = surface_correspond(
+            data_pts, st.corr, x, ctx.faces, ring_faces, front_margin=front)
+        # Huber IRLS plus a hard trim on the current match distances; the
+        # robust scale is the reference's sort-free one-round trimmed mean
+        # (mean |r|, then the mean over |r| < 3 x that), not a median
+        r_cur = surf(x, tri_idx, bary) - data_pts
+        dist = torch.sqrt(torch.sum(r_cur * r_cur, -1) + 1e-16)
+        vw = valid.to(dtype)
+        nv = torch.clamp(torch.sum(vw), min=1.0)
+        m0 = torch.sum(dist * vw) / nv
+        keep = vw * (dist < 3.0 * m0).to(dtype)
+        med = torch.sum(dist * keep) / torch.clamp(torch.sum(keep), min=1.0)
+        med = torch.where(med > 0, med, 1e-3)
+        delta_h = torch.clamp(huber_k * med, min=2e-4)
+        wgt = torch.where(valid, torch.clamp(delta_h / dist, max=1.0), 0.0)
+        wgt = torch.where(dist > trim_k * med, 0.0, wgt)
+        n_matched = torch.sum((wgt > 0).to(dtype))
+        scale = torch.sqrt(torch.clamp(n_matched, min=1.0)) / 15.0
+        bp = beta_pose * scale
+        bs = beta_shape * scale
+
+        cost = cost_at(theta, x, tri_idx, bary, fnrm, wgt, bp, bs)
+        Jm = _icp_jacobian(ctx, parents, theta, fwd)               # [P,3,D]
+        rpl = torch.sum(fnrm * r_cur, -1)                          # [N]
+        # Normal equations without the data axis:
+        #   gradient (exact):  J^T r = sum_p Jm[p]^T G[p],
+        #     G[p] = sum_n w_n b_np (wpt^2 r_n + wpl^2 n_f rpl_n)
+        #   gram (mass-lumped): sum_p Jm[p]^T W_p Jm[p],
+        #     W_p = wpt^2 m_p I + wpl^2 sum_n w_n b_np n_f n_f^T
+        # every per-datum sum reduces through ONE [3N, 13] index_add_
+        nx, ny, nz = fnrm[:, 0], fnrm[:, 1], fnrm[:, 2]
+        nn6 = torch.stack([nx * nx, ny * ny, nz * nz, nx * ny, nx * nz,
+                           ny * nz], dim=-1)                       # [N,6]
+        payload = torch.cat([torch.ones_like(wgt)[:, None], r_cur,
+                             fnrm * rpl[:, None], nn6], dim=-1)    # [N,13]
+        bw = (bary * wgt[:, None]).reshape(-1)                     # [3N]
+        acc = torch.zeros((P, 13), dtype=dtype, device=dev).index_add_(
+            0, tri_idx.reshape(-1),
+            bw[:, None] * payload.repeat_interleave(3, dim=0))     # [P,13]
+        m_pt = acc[:, 0]
+        G = w_pt ** 2 * acc[:, 1:4] + w_pl ** 2 * acc[:, 4:7]      # [P,3]
+        a_, b_, c_, d_, e_, f_ = acc[:, 7:13].unbind(-1)
+        Npp = torch.stack([a_, d_, e_, d_, b_, f_, e_, f_, c_],
+                          dim=-1).reshape(-1, 3, 3)                # [P,3,3]
+        eye3 = torch.eye(3, dtype=dtype, device=dev)
+        W_p = w_pt ** 2 * m_pt[:, None, None] * eye3 + w_pl ** 2 * Npp
+        JmW = torch.einsum("pab,pbd->pad", W_p, Jm)                # [P,3,D]
+        Jflat = Jm.reshape(-1, D_all)
+        JtJ = Jflat.T @ JmW.reshape(-1, D_all)
+        Jtr = Jflat.T @ G.reshape(-1)
+        pJtJ, pJtr = _prior_terms(ctx, parents, theta, Rg, bp, bs)
+        corr_stable = torch.all(st.corr == corr_prev)
+        return (JtJ + pJtJ, Jtr + pJtr, cost, n_matched, st.corr, tri_idx,
+                bary, fnrm, wgt, torch.stack([bp, bs]), corr_stable)
+
+    theta = theta0
+    fwd = _forward(ctx, parents, theta0, use_jsr)
+    lam = f(1e-4)
+    accepted = torch.zeros((), dtype=torch.int32, device=dev)
+    small_cnt = torch.zeros((), dtype=torch.int32, device=dev)
+    cost = f(math.inf)
+    lin = None
+    corr_prev = torch.full((N,), -2, dtype=torch.int32, device=dev)
+    need_lin = True
+    eye = torch.eye(D_all, dtype=dtype, device=dev)
+    nk = D_all - (3 + 3 * J_all)
+    fmask = torch.zeros(D_all, dtype=dtype, device=dev)
+    fmask[D_all - nk:] = 1.0
+    for _ in range(n_steps):
+        if need_lin:
+            lin = linearize(theta, fwd, corr_prev if lin is None else lin[4])
+        else:
+            lin = lin[:10] + (torch.ones((), dtype=torch.bool, device=dev),)
+        (JtJ, Jtr, cost, n_matched, corr, tri_idx, bary, fnrm, wgt, b2,
+         corr_stable) = lin
+        bp, bs = b2[0], b2[1]
+        Rg = fwd[3]
+        d = torch.diagonal(JtJ)
+        d = torch.maximum(d, 1e-3 * torch.max(d))
+        M = JtJ + lam * torch.diag(d) + 1e-8 * eye
+        if freeze_shape and nk > 0:
+            # in-tracker refine: pin the shape block of the FULL tangent
+            # with a dominant diagonal penalty, so delta_w ~ 0
+            M = M + torch.diag(fmask * (1e6 * torch.max(d)))
+        L, info = torch.linalg.cholesky_ex(M)
+        delta = -torch.cholesky_solve(Jtr[:, None], L)[:, 0]
+        delta = torch.where(info == 0, delta, math.nan)
+        trial = _retract(theta, delta, Rg, parents)
+        trial_fwd = _forward(ctx, parents, trial, use_jsr)
+        trial_cost = cost_at(trial, trial_fwd[0], tri_idx, bary, fnrm, wgt,
+                             bp, bs)
+
+        accept = trial_cost < cost
+        rel = torch.abs(cost - trial_cost) / torch.clamp(cost, min=1e-20)
+        small = (rel < function_tolerance) & corr_stable
+        small_cnt = torch.where(small, small_cnt + 1, 0)
+        lam = torch.where(accept, torch.clamp(lam * 0.33, min=1e-9),
+                          torch.clamp(lam * 6.0, max=1e6))
+        accepted = accepted + accept.to(torch.int32)
+        cost = torch.where(accept, trial_cost, cost)
+        need_lin, stop = torch.stack([accept, small_cnt >= 2]).tolist()
+        if need_lin:
+            theta, fwd = trial, trial_fwd
+        if stop:
+            break
+
+    n_matched = lin[3]
+    matched_f = lin[4] >= 0
+    # wildcard matches (label == NP) are excluded, as in ``fit``
+    pidx = torch.where(matched_f & (data_part < NP),
+                       torch.clamp(data_part, 0, NP - 1), NP).long()
+    part_counts = torch.bincount(pidx, minlength=NP + 1)[:NP].to(torch.int32)
+    return theta, FitDiag(cost=cost, n_matched=n_matched,
+                          inner_iters=accepted, part_counts=part_counts)

@@ -10,8 +10,8 @@ point bound through ctypes.
 
 The wrappers take the plain version only for tensors on the CPU.  For CUDA
 tensors they launch the kernel or raise; there is no fallback.
-``LAUNCHES`` counts kernel launches, so a run can show that its path went
-through the kernel.
+``LAUNCHES`` counts kernel launches by wrapper, so a run can show that its
+path went through each kernel.
 """
 
 from __future__ import annotations
@@ -38,7 +38,8 @@ _INF = 3.0e38
 _BIG_PART = 2 ** 30
 _INVALID = -2 ** 31
 
-LAUNCHES = 0         # kernel launches since the last reset
+# kernel launches since the last reset, by the wrapper that launched them
+LAUNCHES = {"nn_argmin_ranges": 0, "nn_argmin": 0}
 _fn = None           # the bound C entry point, once built
 
 
@@ -113,7 +114,7 @@ def _check(data_pts, data_part, model_pts, model_part, model_valid, cstart,
 
 def nn_argmin_ranges(data_pts, data_part, model_pts, model_part, model_valid,
                      cstart, cend, tile_n: int = 256, chunk: int = 512,
-                     wild: int = -1000):
+                     wild: int = -1000, _name: str = "nn_argmin_ranges"):
     """Part-sorted masked NN: (best_d [N] f32, best_i [N] i32).
 
     data_pts [N,3] f32 / data_part [N] i32 sorted by part (< 0 = padding),
@@ -130,7 +131,6 @@ def nn_argmin_ranges(data_pts, data_part, model_pts, model_part, model_valid,
         raise ValueError(f"no kernel for device {data_pts.device}")
     _check(data_pts, data_part, model_pts, model_part, model_valid, cstart,
            cend, tile_n, chunk)
-    global LAUNCHES
     build()
     N, Pp = data_pts.shape[0], model_pts.shape[0]
     best_d = torch.empty(N, dtype=torch.float32, device=data_pts.device)
@@ -144,7 +144,7 @@ def nn_argmin_ranges(data_pts, data_part, model_pts, model_part, model_valid,
                  wild, stream)
     if rc != 0:
         raise RuntimeError(f"nn_argmin_ranges launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    LAUNCHES[_name] += 1
     return best_d, best_i
 
 
@@ -161,7 +161,8 @@ def nn_argmin(data_pts, data_part, model_pts, model_part, model_valid,
     cstart, cend = _full_range(data_pts.shape[0], model_pts.shape[0],
                                tile_n, chunk, data_pts.device)
     return nn_argmin_ranges(data_pts, data_part, model_pts, model_part,
-                            model_valid, cstart, cend, tile_n, chunk, wild)
+                            model_valid, cstart, cend, tile_n, chunk, wild,
+                            _name="nn_argmin")
 
 
 def nn_argmin_ranges_ref(data_pts, data_part, model_pts, model_part,

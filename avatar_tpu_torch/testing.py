@@ -231,3 +231,29 @@ def synthetic_nn_inputs(n_rows: int, detail: int = 6, n_wild: int = 992,
                         num_parts=SMPL24_NUM_GROUPS, model_sorted=True)
     return (plan.dpts.contiguous(), plan.dpart.contiguous(), t(model_pts),
             plan.mpart_s.contiguous(), t(valid), plan.cstart, plan.cend)
+
+
+def probe_samples(depth_mm: np.ndarray, mask: np.ndarray, intrin,
+                  stride: int, glut=None):
+    """The samples of bench.py's ``fit_rmse_mm`` probe: the oracle-labelled
+    pixels of one frame at ``stride`` (uint16 mm depth, part mask with 255
+    for background) back-projected with the renderer's y-flip, labels
+    folded through ``glut`` (part -> group) when given, padded to a power
+    of two >= 1024 with label -1.  Returns (pts [B,3] f32, parts [B] i32).
+    """
+    d0 = depth_mm[::stride, ::stride].astype(np.float32) * 1e-3
+    m0 = np.asarray(mask)[::stride, ::stride]
+    ys = np.arange(d0.shape[0]) * stride
+    xs = np.arange(d0.shape[1]) * stride
+    sub = np.stack([(xs[None, :] - intrin.cx) * d0 / intrin.fx,
+                    -(ys[:, None] - intrin.cy) * d0 / intrin.fy, d0], -1)
+    fgm = (m0 != 255) & (d0 > 0)
+    n0 = int(fgm.sum())
+    b0 = 1024
+    while b0 < n0:
+        b0 *= 2
+    pts = np.zeros((b0, 3), np.float32)
+    pts[:n0] = sub[fgm]
+    parts = np.full(b0, -1, np.int32)
+    parts[:n0] = m0[fgm] if glut is None else np.asarray(glut)[m0[fgm]]
+    return pts, parts

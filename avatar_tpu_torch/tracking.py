@@ -37,7 +37,7 @@ class TrackerConfig:
     lost_reinit_frames: int = 5
     absent_fg_frac: float = 0.25
     lost_gated_frames: int = 45
-    # surface refine (not ported yet: refine_every must stay 0)
+    # periodic surface refine (fit_refine) every refine_every frames
     refine_every: int = 0
     refine_steps: int = 4
     refine_beta: float = 0.1

@@ -15,12 +15,14 @@ each LM step read a flag from the device, and the host reads one packed
 diagnostics vector per frame.  The reinit / loss state machine stays on
 the host as in the reference.
 
+On refine frames (``TrackerConfig.refine_every``) the same data bucket is
+re-fitted against the mesh surface (``optim/gauss_newton.fit_refine``,
+which runs the same NN kernel).
+
 Top-k compactions use ``torch.argsort(-score, stable=True)[:k]``, which
 orders ties toward the lower index exactly as ``lax.top_k`` does (the hash
 noise has only 65536 levels, so ties occur).  Not ported yet: the batch
-and async paths, ``warmup``, the surface refine (``refine_every`` must stay
-0), the metrics log and ``Avatar``; ``pose()`` stands in for
-``sync_avatar``.
+and async paths, ``warmup`` and the metrics log.
 """
 
 from __future__ import annotations
@@ -32,9 +34,11 @@ import torch
 
 from avatar_tpu_torch.core import rotation
 from avatar_tpu_torch.core.lbs import LBSParams, lbs
-from avatar_tpu_torch.core.model import AvatarModel
+from avatar_tpu_torch.core.model import Avatar, AvatarModel
 from avatar_tpu_torch.optim.gauss_newton import (FitContext, PriorData, Theta,
-                                                 _forward, extrapolate, fit)
+                                                 _forward, extrapolate, fit,
+                                                 fit_refine)
+from avatar_tpu_torch.optim.surface import vertex_face_rings
 from avatar_tpu_torch.perception import cc
 from avatar_tpu_torch.perception.bgsub import _foreground_mask
 from avatar_tpu_torch.perception.partgroups import (SMPL24_GROUP_CHAIN_ROOT,
@@ -166,6 +170,8 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
                       freeze_shape: bool = False, fit_sorted: bool = False,
                       wild_n: int = 0, wild_gate=0.12, wild_weight=1.0,
                       sel_walk: float = 0.0, body_gate=0.0,
+                      ring_faces: Optional[torch.Tensor] = None,
+                      refine_steps: int = 0, refine_beta=0.1,
                       theta_prev: Optional[Theta] = None,
                       extrap=0.0) -> FrameOut:
     """One tracked frame.
@@ -472,6 +478,15 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
                       clamp_angle=clamp_angle, freeze_shape=freeze_shape,
                       model_sorted=fit_sorted and ctx_fit is not None,
                       wild_gate=wild_gate, wild_weight=wild_weight)
+    if refine_steps > 0 and ring_faces is not None:
+        # per-frame exactness stage: re-fit the SAME data bucket against the
+        # mesh surface from the tracked pose, with the full model context
+        # and the priors scaled down by refine_beta
+        theta, _ = fit_refine(
+            ctx, parents, ring_faces, pts.contiguous(), parts.contiguous(),
+            theta, beta_pose * refine_beta, beta_shape * refine_beta,
+            n_steps=refine_steps, num_parts=num_parts, wild=num_parts,
+            wild_gate2=wild_gate * wild_gate, freeze_shape=freeze_shape)
     host_diag = torch.cat([
         n_points[None].to(dtype), diag.cost[None].to(dtype),
         diag.n_matched[None].to(dtype), diag.part_counts.to(dtype),
@@ -565,13 +580,11 @@ class FusedTracker:
         self.intrin = intrin
         self.image_size = tuple(image_size)
         self.config = config or TrackerConfig()
-        if self.config.refine_every > 0:
-            raise NotImplementedError(
-                "the surface refine (refine_every > 0) is not ported yet")
         rtrees = (list(rtree) if isinstance(rtree, (list, tuple))
                   else ([rtree] if rtree is not None else []))
         rtree = rtrees[0] if rtrees else None
         self.rtree = rtree
+        self.ava = Avatar(model)
         self.timer = StageTimer()
         dev, dt = self.device, model.dtype
         tt = lambda a, dtype=dt: torch.as_tensor(a, dtype=dtype, device=dev)
@@ -640,8 +653,11 @@ class FusedTracker:
         self._lost_count = 0      # consecutive coasted (root-jump) frames
         self._lost_frames = 0     # frames since tracking was lost
         self._last_root_z = None  # last-known body camera depth (m)
-        self._frame_no = 0
+        self._frame_no = 0        # steady-state frames (refine cadence)
         self._shape_refit_in: Optional[int] = None
+        self._ring = (torch.as_tensor(vertex_face_rings(
+            model.faces, model.num_points()), device=dev)
+            if self.config.refine_every > 0 else None)
         self._starve = np.zeros(num_parts, np.int32)
         self.limb_recoveries: dict = {}
         J = model.num_joints()
@@ -756,7 +772,8 @@ class FusedTracker:
                 render_tau=t(c.render_label_tau), beta_temp=t(c.beta_temp),
                 clamp_angle=t(c.pose_clamp_angle), wild_gate=t(c.wild_gate),
                 wild_weight=t(c.wild_weight), body_gate=t(c.body_gate),
-                extrap=t(c.extrapolate_pose), zero=t(0.0))
+                refine_beta=t(c.refine_beta), extrap=t(c.extrapolate_pose),
+                zero=t(0.0))
             # per-group confidence gate (relaxed groups only mean anything
             # when group matching is on)
             cv = np.full(self.num_parts, c.label_conf_thresh, np.float32)
@@ -770,7 +787,7 @@ class FusedTracker:
 
     def _run(self, xyz, labels, n_steps, use_window=True,
              render_labels=True, is_reinit=False, reinit_gated=False,
-             fit_shape=False) -> FrameOut:
+             refine=False, fit_shape=False) -> FrameOut:
         c = self.config
         hs = self._host_stride
         window = None
@@ -811,6 +828,9 @@ class FusedTracker:
             # no valid prior pose during a cold (re)init -> gate off
             body_gate=(k["body_gate"] if (not is_reinit or reinit_gated)
                        else k["zero"]),
+            ring_faces=self._ring if refine else None,
+            refine_steps=c.refine_steps if refine else 0,
+            refine_beta=k["refine_beta"],
             theta_prev=self._theta if is_reinit else self._theta_prev,
             extrap=k["extrap"])
 
@@ -869,9 +889,12 @@ class FusedTracker:
         else:
             n_steps = c.frame_icp_iters * c.iters_per_icp
             self._frame_no += 1
+            refine = (c.refine_every > 0 and
+                      self._frame_no % c.refine_every == 0)
             fit_shape = self._shape_refit_due()
             with self.timer.stage("frame"):
-                out = self._run(xyz, labels, n_steps, fit_shape=fit_shape)
+                out = self._run(xyz, labels, n_steps, refine=refine,
+                                fit_shape=fit_shape)
                 diag = unpack_diag(out.host_diag, self.num_parts)
                 n_points = diag.n_points
             if (n_points < min_needed and
@@ -987,9 +1010,18 @@ class FusedTracker:
                     part_counts=diag.part_counts.astype(int).tolist(),
                     hard_overflow=diag.hard_overflow)
 
+    def sync_avatar(self) -> Avatar:
+        """Materialize the device-side pose into ``self.ava`` (host)."""
+        th = self._theta
+        self.ava.p = th.p.cpu().numpy().astype(np.float64)
+        self.ava.r = th.rots.cpu().numpy().astype(np.float64)
+        self.ava.w = th.w.cpu().numpy().astype(np.float64)
+        self.ava.update()
+        return self.ava
+
     def pose(self) -> Tuple[np.ndarray, np.ndarray]:
-        """The tracked pose as numpy (verts [P,3], joints [J,3]); stands in
-        for the reference's ``sync_avatar`` until ``Avatar`` is ported."""
+        """The tracked pose as numpy (verts [P,3], joints [J,3]), without
+        touching ``self.ava``."""
         m = self.model
         th = self._theta
         verts, joints, _, _ = lbs(m.params, m.parents, th.w, th.p, th.rots,

@@ -156,7 +156,7 @@ def test_plan_and_planned_stats_match_reference(model_sorted):
 def test_cpu_wrapper_takes_plain_version_without_launching():
     inputs = [torch.as_tensor(a) for a in
               _planned_inputs(*_clouds(4), 256, 512)]
-    before = nn_kernel.LAUNCHES
+    before = dict(nn_kernel.LAUNCHES)
     d, i = nn_kernel.nn_argmin_ranges(*inputs, wild=WILD)
     rd, ri = nn_kernel.nn_argmin_ranges_ref(*inputs, wild=WILD)
     assert torch.equal(i, ri) and torch.equal(d, rd)
