@@ -97,3 +97,12 @@ def lbs(params: LBSParams, parents: Tuple[int, ...], w: torch.Tensor,
     b = params.weights @ t_eff                                     # [P,3]
     cloud = torch.einsum("pab,pb->pa", A, shaped) + b
     return cloud, tg, Rg, j_init
+
+
+def lbs_batched(params: LBSParams, parents: Tuple[int, ...], w, p, rots,
+                use_jsr: bool = True):
+    """``lbs`` over the leading batch axis of (w, p, rots): (cloud [B,P,3],
+    joints [B,J,3], Rg [B,J,3,3], j_init [B,J,3])."""
+    outs = [lbs(params, parents, w[b], p[b], rots[b], use_jsr)
+            for b in range(w.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))

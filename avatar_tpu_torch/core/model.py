@@ -21,6 +21,7 @@ import torch
 from avatar_tpu_torch.core import rotation
 from avatar_tpu_torch.core.lbs import LBSParams, lbs
 from avatar_tpu_torch.core.pose_prior import GaussianMixture
+from avatar_tpu_torch.device import get_device
 
 
 class SmplJoint:
@@ -68,16 +69,16 @@ class AvatarModel:
     [P], ancestor_mask [J,J], pose_prior (GaussianMixture or None)."""
 
     def __init__(self, model_dir: str = "", dtype=torch.float32,
-                 device: str | torch.device = "cpu", *,
+                 device: str | torch.device = "cuda", *,
                  arrays: Optional[dict] = None,
                  pose_prior: Optional[GaussianMixture] = None):
+        self.device = get_device(device)
         if arrays is None:
             arrays = _load_model_dir(model_dir)
             pose_prior = GaussianMixture.load(
-                os.path.join(model_dir, "pose_prior.txt"), dtype, device)
+                os.path.join(model_dir, "pose_prior.txt"), dtype, self.device)
         self.model_dir = model_dir
         self.dtype = dtype
-        self.device = torch.device(device)
         self.pose_prior = pose_prior
 
         self.v_template = np.asarray(arrays["v_template"], np.float64)
@@ -282,9 +283,12 @@ class Avatar:
     def random_mocap_pose(self, pose_seq=None,
                           rng: Optional[np.random.Generator] = None) -> None:
         """Pose from a random mocap-bank frame (reference
-        Avatar::randomMocapPose).  The pose-sequence bank is not ported yet,
-        so without one this raises as the reference does with no bank."""
-        if pose_seq is None or pose_seq.num_frames == 0:
+        Avatar::randomMocapPose; needs the avatar-mocap data bank)."""
+        from avatar_tpu_torch.core.sequence import AvatarPoseSequence
+
+        if pose_seq is None:
+            pose_seq = AvatarPoseSequence()
+        if pose_seq.num_frames == 0:
             raise FileNotFoundError(
                 "no mocap bank available (data/avatar-mocap/cmu-mocap.dat)")
         rng = rng or np.random.default_rng()

@@ -15,11 +15,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from avatar_tpu_torch.device import get_device
+
 
 class GaussianMixture:
     def __init__(self, weights: np.ndarray, means: np.ndarray,
                  covs: np.ndarray, dtype=torch.float32,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         """weights [C], means [C, D], covs [C, D, D] (numpy, float64)."""
         self.n_comps = int(weights.shape[0])
         self.n_dims = int(means.shape[1])
@@ -41,6 +43,7 @@ class GaussianMixture:
         self._np = dict(weights=weights, means=means, covs=covs,
                         cov_cho=cov_cho, prec_cho=prec_cho,
                         consts_log=consts_log)
+        device = get_device(device)
         t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
         self.weights = t(weights)
         self.means = t(means)
@@ -50,7 +53,7 @@ class GaussianMixture:
 
     @classmethod
     def load(cls, path: str, dtype=torch.float32,
-             device: str | torch.device = "cpu"
+             device: str | torch.device = "cuda"
              ) -> Optional["GaussianMixture"]:
         """Load ``pose_prior.txt``; None if the file is missing (the
         reference silently disables the prior)."""

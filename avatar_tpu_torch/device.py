@@ -16,9 +16,10 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-def get_device(name: str | torch.device = "cpu") -> torch.device:
-    """``torch.device`` for ``name``.  Raises when CUDA is requested and
-    not available: there is no silent CPU fallback."""
+def get_device(name: str | torch.device = "cuda") -> torch.device:
+    """``torch.device`` for ``name``, the card unless the caller asks for
+    the CPU.  Raises when CUDA is requested and not available: there is no
+    silent CPU fallback."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {name!r} requested but CUDA is not "

@@ -12,8 +12,10 @@ Differences from the reference, all of control flow and none of maths:
   * the device ``lax.while_loop`` is a Python loop that reads its two
     flags (accept, stop) from the device once per step;
   * ``lax.cond`` over re-linearization is a Python ``if`` on that flag;
-  * correspondences always take the part-sorted planned NN
-    (``correspond.find_nn_stats_planned``), which needs N % 256 == 0.
+  * correspondences take the part-sorted planned NN
+    (``correspond.find_nn_stats_planned``) whenever N % 256 == 0, and the
+    unplanned ``correspond.find_nn_stats`` otherwise, the reference's
+    branches without its TPU gate.
 """
 
 from __future__ import annotations
@@ -237,10 +239,11 @@ def fit(ctx: FitContext, parents: Tuple[int, ...], data_pts: torch.Tensor,
         wild_gate=0.15, wild_weight=1.0) -> Tuple[Theta, FitDiag]:
     """Full avatar fit (the reference's AvatarOptimizer::optimize).
 
-    data_pts [N,3] / data_part [N] are padded (data_part < 0) to a multiple
-    of 256.  Points labelled ``num_parts`` are wildcards: they match the
-    nearest visible vertex of any part, gated at ``wild_gate`` meters and
-    weighted ``wild_weight``.
+    data_pts [N,3] / data_part [N]; padding rows carry data_part < 0.  At
+    N % 256 == 0 the NN runs over a part-sorted plan built once, else over
+    the whole model axis every step.  Points labelled ``num_parts`` are
+    wildcards: they match the nearest visible vertex of any part, gated at
+    ``wild_gate`` meters and weighted ``wild_weight``.
     """
     dtype, dev = data_pts.dtype, data_pts.device
     P = ctx.lbs.weights.shape[0]
@@ -269,11 +272,9 @@ def fit(ctx: FitContext, parents: Tuple[int, ...], data_pts: torch.Tensor,
     rot_dims[3:3 + 3 * J_all] = 1.0
 
     NP = num_parts or len(parents)     # also the wildcard label id
-    plan = correspond.make_nn_plan(data_pts, data_part, ctx.model_part,
-                                   num_parts=NP, tile_n=256, chunk=chunk,
-                                   model_sorted=model_sorted)
-    data_pts = plan.dpts
-    data_part = plan.dpart
+    data_pts, data_part, match = correspond.matcher(
+        data_pts, data_part, ctx.model_part, NP, chunk=chunk,
+        model_sorted=model_sorted)
 
     w_wild = f(wild_weight)
     wild_gate2 = f(wild_gate) ** 2
@@ -304,8 +305,7 @@ def fit(ctx: FitContext, parents: Tuple[int, ...], data_pts: torch.Tensor,
             vis = torch.ones(P, dtype=torch.bool, device=dev)
         if ctx.cand_mask is not None:
             vis = vis & ctx.cand_mask
-        st = correspond.find_nn_stats_planned(plan, x, vis, wild=NP,
-                                              wild_gate2=wild_gate2)
+        st = match(x, vis, NP, wild_gate2)
         valid = st.corr >= 0
         cidx = torch.clamp(st.corr, min=0).long()
 
@@ -462,9 +462,10 @@ def fit_refine(ctx: FitContext, parents: Tuple[int, ...],
     r_n = sum_i b_i x_{v_i} - d_n and its face-normal component.
 
     ``ring_faces`` comes from ``surface.vertex_face_rings``.  The NN plan
-    is over the full, unsorted model axis (``mperm``), as the reference
-    builds it.  Unlike the reference, ``part_counts`` excludes wildcard
-    matches (label ``num_parts``), as ``fit`` does.
+    (N % 256 == 0) is over the full, unsorted model axis (``mperm``), as
+    the reference builds it; other N take ``correspond.find_nn_stats``.
+    Unlike the reference, ``part_counts`` excludes wildcard matches
+    (label ``num_parts``), as ``fit`` does.
     """
     from avatar_tpu_torch.optim.surface import surface_correspond
 
@@ -484,10 +485,8 @@ def fit_refine(ctx: FitContext, parents: Tuple[int, ...],
     occ_margin = 0.2
 
     NP = num_parts or len(parents)
-    plan = correspond.make_nn_plan(data_pts, data_part, ctx.model_part,
-                                   num_parts=NP, tile_n=256, chunk=chunk)
-    data_pts = plan.dpts
-    data_part = plan.dpart
+    data_pts, data_part, match = correspond.matcher(
+        data_pts, data_part, ctx.model_part, NP, chunk=chunk)
     N = data_pts.shape[0]
     J_all = len(parents)
     D_all = 3 + 3 * J_all + ctx.lbs.shapedirs.shape[2]
@@ -516,8 +515,7 @@ def fit_refine(ctx: FitContext, parents: Tuple[int, ...],
             front = None
         if ctx.cand_mask is not None:
             vis = vis & ctx.cand_mask
-        st = correspond.find_nn_stats_planned(plan, x, vis, wild=wild,
-                                              wild_gate2=wild_gate2)
+        st = match(x, vis, wild, wild_gate2)
         tri_idx, bary, fnrm, valid = surface_correspond(
             data_pts, st.corr, x, ctx.faces, ring_faces, front_margin=front)
         # Huber IRLS plus a hard trim on the current match distances; the

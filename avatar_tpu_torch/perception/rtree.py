@@ -1,6 +1,6 @@
 """Random-forest body-part segmentation (counterpart of
-``avatar_tpu/perception/rtree.py``: ``TreeTensors``, ``walk_pixels``,
-``suppress_part_nonmax`` and a minimal ``RTree``).
+``avatar_tpu/perception/rtree.py``: the walk, the blob filters and the
+``RTree`` inference API; training waits for the forest trainer's port).
 
 The walk evaluates the Shotton depth-probe feature
     f = depth(pix + u / d(pix)) - depth(pix + v / d(pix))
@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from avatar_tpu_torch.device import get_device
 from avatar_tpu_torch.io import formats
 from avatar_tpu_torch.perception import cc
 
@@ -81,6 +82,88 @@ def walk_pixels(tree: TreeTensors, ys, xs, z, fg, probe_flat, probe_shape,
                           tree.rnode[node]).long()
         node = torch.where(is_leaf, node, nxt)
     return torch.where(fg, tree.leafid[node], -1)
+
+
+def forest_walk(tree: TreeTensors, depth_img: torch.Tensor, max_depth: int,
+                interval: int, top_left, bot_right, probe_img=None,
+                origin=None) -> torch.Tensor:
+    """Leaf ids [Hs, Ws] over the strided grid (-1 for background).
+
+    depth_img [H, W] f32, depth 0 = background; top_left/bot_right:
+    inclusive (x, y) ROI bounds, probes outside it read BACKGROUND_DEPTH
+    (reference RTree.cpp:3224-3237).  ``probe_img``/``origin``: when
+    walking a window of a larger image, the full image and the window's
+    (x, y) origin (ROI bounds are then in probe-image coordinates).  The
+    grid samples pixels (y, x) = origin + (i, j) * interval.
+    """
+    H, W = depth_img.shape
+    dev = depth_img.device
+    Hs = (H + interval - 1) // interval
+    Ws = (W + interval - 1) // interval
+    if probe_img is None:
+        probe_img = depth_img
+    ox, oy = (0, 0) if origin is None else origin
+    Hp, Wp = probe_img.shape
+    ys_l = (torch.arange(Hs, device=dev) * interval)[:, None]
+    xs_l = (torch.arange(Ws, device=dev) * interval)[None, :]
+    ys, xs = ys_l + oy, xs_l + ox
+    tlx, tly = top_left
+    brx, bry = bot_right
+    z = depth_img.reshape(-1)[torch.clamp(ys_l * W + xs_l, max=H * W - 1)]
+    fg = (z > 0) & (xs >= tlx) & (xs <= brx) & (ys >= tly) & (ys <= bry)
+    return walk_pixels(tree, ys.expand(Hs, Ws), xs.expand(Hs, Ws), z, fg,
+                       probe_img.reshape(-1), (Hp, Wp), max_depth,
+                       top_left, bot_right)
+
+
+def upscale_grid(image: torch.Tensor, interval: int, top_left, bot_right
+                 ) -> torch.Tensor:
+    """Fill stride gaps with the top-left sample of each cell, inside the
+    ROI and for cells whose anchor is in it (reference upscaleGrid,
+    RTree.cpp:70-99)."""
+    if interval == 1:
+        return image
+    H, W = image.shape
+    dev = image.device
+    yy = torch.arange(H, device=dev)[:, None]
+    xx = torch.arange(W, device=dev)[None, :]
+    src_y = (yy // interval) * interval
+    src_x = (xx // interval) * interval
+    tlx, tly = top_left
+    brx, bry = bot_right
+    inroi = (xx >= tlx) & (xx <= brx) & (yy >= tly) & (yy <= bry)
+    anchor_in = ((src_x >= tlx) & (src_x <= brx) & (src_y >= tly) &
+                 (src_y <= bry))
+    return torch.where(inroi & anchor_in, image[src_y, src_x], image)
+
+
+def remove_small_pieces(strided: torch.Tensor, num_parts: int,
+                        interval: int, image_hw, thresh: float = 0.0005
+                        ) -> torch.Tensor:
+    """Erase connected blobs below thresh * (H*W / interval^2) pixels
+    (reference removeSmallPieces, RTree.cpp:245-321)."""
+    labels = cc.connected_components(strided != 255, values=strided)
+    sizes = cc.component_sizes(labels)
+    scaled = torch.tensor(image_hw[0] * image_hw[1], dtype=torch.float32) / (
+        interval * interval) * thresh
+    flat_lab = labels.reshape(-1)
+    sz_of_pix = sizes[torch.clamp(flat_lab, min=0).long()]
+    keep = (flat_lab >= 0) & (sz_of_pix.to(torch.float32) >= scaled.to(
+        strided.device))
+    return torch.where(keep, strided.reshape(-1),
+                       torch.full_like(strided.reshape(-1), 255)).reshape(
+        strided.shape)
+
+
+def _strided_to_full(strided: torch.Tensor, full_shape, interval: int
+                     ) -> torch.Tensor:
+    """Strided samples placed back into a full-size image, 255 elsewhere."""
+    if interval == 1:
+        return strided
+    out = torch.full(tuple(full_shape), 255, dtype=strided.dtype,
+                     device=strided.device)
+    out[::interval, ::interval] = strided
+    return out
 
 
 def suppress_part_nonmax(strided: torch.Tensor, com_pre: torch.Tensor,
@@ -149,12 +232,12 @@ def suppress_part_nonmax(strided: torch.Tensor, com_pre: torch.Tensor,
 
 
 class RTree:
-    """Minimal forest holder (the reference's ``RTree`` with
-    ``load_file``/``set_forest``; inference entry points beyond the fused
-    tracker's walk are not ported yet)."""
+    """Forest API mirroring the reference class (RTree.h:13-183): loading,
+    ``predict_best``, ``predict`` and ``post_process`` on ``device``.
+    Training raises until the forest trainer is ported (ROADMAP A5)."""
 
-    def __init__(self, path_or_parts, device: str | torch.device = "cpu"):
-        self.device = torch.device(device)
+    def __init__(self, path_or_parts, device: str | torch.device = "cuda"):
+        self.device = get_device(device)
         self.part_map: list = []
         self.partmap_type: int = -1
         self._tree: Optional[TreeTensors] = None
@@ -194,3 +277,118 @@ class RTree:
             leaf_best=t(np.argmax(ld, axis=1), torch.uint8),
             leaf_conf=t(ld.max(axis=1) if ld.size else np.zeros(0),
                         torch.float32))
+
+    loadFile = load_file
+
+    # -- inference ----------------------------------------------------------
+
+    def _roi(self, depth_shape, top_left, bot_right):
+        H, W = depth_shape
+        if top_left is None:
+            top_left = (0, 0)
+        if bot_right is None or bot_right[0] == -1:
+            bot_right = (W - 1, H - 1)
+        return ((int(top_left[0]), int(top_left[1])),
+                (int(bot_right[0]), int(bot_right[1])))
+
+    def _depth(self, depth) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(depth, np.float32),
+                               device=self.device)
+
+    def predict_best(self, depth, num_threads: int = 0, interval: int = 1,
+                     top_left=None, bot_right=None,
+                     fill_in_gaps: bool = True) -> np.ndarray:
+        """Best part per pixel: [H, W] uint8, 255 = background (reference
+        RTree.cpp:3184-3262).  ``num_threads`` is ignored."""
+        depth = self._depth(depth)
+        tl, br = self._roi(depth.shape, top_left, bot_right)
+        leaf = forest_walk(self._tree, depth, self._max_depth, interval, tl,
+                           br)
+        best = self._tree.leaf_best[torch.clamp(leaf, min=0).long()]
+        best = torch.where(leaf >= 0, best, torch.full_like(best, 255))
+        out = _strided_to_full(best, depth.shape, interval)
+        if fill_in_gaps and interval > 1:
+            out = upscale_grid(out, interval, tl, br)
+        return out.cpu().numpy()
+
+    predictBest = predict_best
+
+    def predict(self, depth, interval: int = 1, top_left=None,
+                bot_right=None, fill_in_gaps: bool = True) -> np.ndarray:
+        """Leaf distributions [H, W, num_parts] f32 at full resolution,
+        zeros at background (reference RTree.cpp:3156-3182).  Stride gaps
+        repeat each cell's top-left sample (``fill_in_gaps``) or stay
+        zero."""
+        depth = self._depth(depth)
+        tl, br = self._roi(depth.shape, top_left, bot_right)
+        leaf = forest_walk(self._tree, depth, self._max_depth, interval, tl,
+                           br)
+        dist = self._tree.leaf_data[torch.clamp(leaf, min=0).long()]
+        dist = torch.where((leaf >= 0)[..., None], dist, 0.0)
+        if interval > 1:
+            H, W = depth.shape
+            if fill_in_gaps:
+                dist = dist.repeat_interleave(interval, 0).repeat_interleave(
+                    interval, 1)[:H, :W]
+            else:
+                full = torch.zeros((H, W, dist.shape[-1]), dtype=dist.dtype,
+                                   device=dist.device)
+                full[::interval, ::interval] = dist
+                dist = full
+        return dist.cpu().numpy()
+
+    def post_process(self, image: np.ndarray, com_pre: np.ndarray,
+                     interval: int = 1, num_threads: int = 0,
+                     top_left=None, bot_right=None,
+                     dist_to_pre_weight: float = 0.001) -> np.ndarray:
+        """Blob filtering and gap fill (reference RTree.cpp:3422-3450):
+        returns the filtered [H, W] uint8 labels; ``com_pre`` [2,
+        num_parts] is updated in place as in the reference.  The strided
+        grid is anchored at image (0, 0), as ``predict_best``'s is, with
+        out-of-ROI samples masked to background."""
+        H, W = image.shape
+        tl, br = self._roi(image.shape, top_left, bot_right)
+        if com_pre.shape != (2, self.num_parts):
+            com_pre.resize((2, self.num_parts), refcheck=False)
+            com_pre[0, :] = -1.0
+            com_pre[1, :] = 0.0
+        strided = np.array(image[::interval, ::interval])
+        ys = np.arange(strided.shape[0]) * interval
+        xs = np.arange(strided.shape[1]) * interval
+        inroi = ((xs[None, :] >= tl[0]) & (xs[None, :] <= br[0]) &
+                 (ys[:, None] >= tl[1]) & (ys[:, None] <= br[1]))
+        strided[~inroi] = 255
+        st = torch.as_tensor(strided, device=self.device)
+        if self.partmap_type == formats.PARTMAP_CONTIGUOUS:
+            filtered, new_com = suppress_part_nonmax(
+                st, torch.as_tensor(com_pre, dtype=torch.float32,
+                                    device=self.device),
+                self.num_parts, interval, dist_to_pre_weight, (0, 0))
+            com_pre[:] = new_com.cpu().numpy()
+        else:
+            filtered = remove_small_pieces(st, self.num_parts, interval,
+                                           (H, W))
+        out = np.asarray(image).copy()
+        out[::interval, ::interval] = np.where(
+            inroi, filtered.cpu().numpy(), out[::interval, ::interval])
+        if interval > 1:
+            out = upscale_grid(torch.as_tensor(out, device=self.device),
+                               interval, tl, br).cpu().numpy()
+        return out
+
+    postProcess = post_process
+
+    @staticmethod
+    def read_part_map(path_or_stream):
+        return formats.read_partmap(path_or_stream)
+
+    readPartMap = read_part_map
+
+    def train_from_avatar(self, *args, **kwargs):
+        raise NotImplementedError(
+            "forest training is not ported yet (ROADMAP A5)")
+
+    trainFromAvatar = train_from_avatar
+    train_transfer = train_from_avatar
+    trainTransfer = train_from_avatar
+    train = train_from_avatar

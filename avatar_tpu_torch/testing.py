@@ -15,6 +15,7 @@ import torch
 
 from avatar_tpu_torch.core.model import AvatarModel
 from avatar_tpu_torch.core.pose_prior import GaussianMixture
+from avatar_tpu_torch.device import get_device
 
 # Rest-pose joint positions for an SMPL-like skeleton (meters, T-pose-ish,
 # y up, pelvis at origin).  Indexed by SmplJoint ids.
@@ -161,7 +162,7 @@ def synthetic_arrays(detail: int = 1, n_keys: int = 10, seed: int = 7) -> dict:
 
 def synthetic_pose_prior(n_joints: int = 24, n_comps: int = 4,
                          seed: int = 11, dtype=torch.float32,
-                         device: str | torch.device = "cpu"
+                         device: str | torch.device = "cuda"
                          ) -> GaussianMixture:
     """GMM pose prior over (J-1)*3 axis-angle dims, centered near rest pose."""
     rng = np.random.default_rng(seed)
@@ -178,7 +179,7 @@ def synthetic_pose_prior(n_joints: int = 24, n_comps: int = 4,
 
 def synthetic_model(detail: int = 1, n_keys: int = 10, seed: int = 7,
                     with_prior: bool = True, dtype=torch.float32,
-                    device: str | torch.device = "cpu") -> AvatarModel:
+                    device: str | torch.device = "cuda") -> AvatarModel:
     """The reference's ``synthetic_model`` with its tensors on ``device``."""
     arrays = synthetic_arrays(detail, n_keys, seed)
     prior = (synthetic_pose_prior(24, seed=seed + 1, dtype=dtype,
@@ -189,7 +190,7 @@ def synthetic_model(detail: int = 1, n_keys: int = 10, seed: int = 7,
 
 def synthetic_nn_inputs(n_rows: int, detail: int = 6, n_wild: int = 992,
                         frac_labelled: float = 0.5, seed: int = 0,
-                        device: str | torch.device = "cpu"):
+                        device: str | torch.device = "cuda"):
     """Arguments of ``nn_kernel.nn_argmin_ranges`` at the fit's shapes.
 
     The model axis is the synthetic model's rest vertices (detail 6: 6624,
@@ -204,6 +205,7 @@ def synthetic_nn_inputs(n_rows: int, detail: int = 6, n_wild: int = 992,
     from avatar_tpu_torch.perception.partgroups import (SMPL24_GROUP_LUT,
                                                         SMPL24_NUM_GROUPS)
 
+    device = get_device(device)
     rng = np.random.default_rng(seed)
     arrays = synthetic_arrays(detail)
     verts = arrays["v_template"]
@@ -231,6 +233,34 @@ def synthetic_nn_inputs(n_rows: int, detail: int = 6, n_wild: int = 992,
                         num_parts=SMPL24_NUM_GROUPS, model_sorted=True)
     return (plan.dpts.contiguous(), plan.dpart.contiguous(), t(model_pts),
             plan.mpart_s.contiguous(), t(valid), plan.cstart, plan.cend)
+
+
+def synthetic_nn_stats_inputs(n_rows: int, detail: int = 6,
+                              n_wild: int = 992, seed: int = 0,
+                              device: str | torch.device = "cuda"):
+    """Arguments of ``correspond.find_nn_stats`` at the host tracker's
+    shapes: the synthetic model's rest vertices (detail 6: 6624, unsorted)
+    with their 14 matching groups, 70% visible, and ``n_rows`` unsorted
+    data rows: vertices plus 5 mm noise with their group, ``n_wild``
+    wildcards (label 14), a quarter padding (label -1).  Returns
+    (data_pts, data_part, model_cloud, model_part, visible) on ``device``.
+    """
+    from avatar_tpu_torch.perception.partgroups import (SMPL24_GROUP_LUT,
+                                                        SMPL24_NUM_GROUPS)
+
+    device = get_device(device)
+    rng = np.random.default_rng(seed)
+    arrays = synthetic_arrays(detail)
+    verts = arrays["v_template"].astype(np.float32)
+    part = SMPL24_GROUP_LUT[np.argmax(arrays["weights"], axis=1)]
+    pick = rng.integers(0, verts.shape[0], n_rows)
+    data = verts[pick] + rng.normal(0, 0.005, (n_rows, 3)).astype(np.float32)
+    dpart = part[pick].astype(np.int32)
+    dpart[rng.permutation(n_rows)[:n_wild]] = SMPL24_NUM_GROUPS
+    dpart[rng.random(n_rows) < 0.25] = -1
+    visible = rng.random(verts.shape[0]) < 0.7
+    return tuple(torch.as_tensor(a, device=device) for a in (
+        data, dpart, verts, part.astype(np.int32), visible))
 
 
 def probe_samples(depth_mm: np.ndarray, mask: np.ndarray, intrin,

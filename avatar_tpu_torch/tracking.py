@@ -1,19 +1,33 @@
-"""Tracker configuration and per-frame result (counterparts of
-``TrackerConfig`` and ``TrackResult`` in ``avatar_tpu/tracking.py``,
-field for field with the same defaults; the host-orchestrated ``Tracker``
-is not ported yet).
+"""The host tracker, its configuration and per-frame result
+(counterparts of ``Tracker``, ``TrackerConfig`` and ``TrackResult`` in
+``avatar_tpu/tracking.py``).
 
-The rationale and the measurements behind each default live with the
-reference's ``TrackerConfig``; ``tests/test_torch_perception.py`` checks
-that the fields and defaults here stay equal to it.
+``Tracker`` is the reference's demo / live-demo frame loop (demo.cpp:
+153-334, live-demo.cpp:264-530): XYZ frame -> ``BGSubtractor`` ->
+``RTree.predict_best`` at stride 2 -> ``RTree.post_process`` (blob
+filtering with centre-of-mass tracking) -> stride-sampled labelled cloud
+-> the reinit state machine -> ``AvatarOptimizer.optimize`` -> optional
+Lambert overlay.  Each stage runs on the model's device and hands numpy
+to the next, as the reference's host path does; the per-frame fused
+tracker is ``tracking_fused.FusedTracker``.
+
+``TrackerConfig`` is field for field the reference's, with the same
+defaults; the rationale and measurements behind each default live there,
+and ``tests/test_torch_perception.py`` checks that the two stay equal.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Optional
 
 import numpy as np
+
+from avatar_tpu_torch.core.model import Avatar, AvatarModel
+from avatar_tpu_torch.optim.optimizer import AvatarOptimizer
+from avatar_tpu_torch.perception.bgsub import BGSubtractor
+from avatar_tpu_torch.utils import StageTimer
 
 
 @dataclasses.dataclass
@@ -87,3 +101,170 @@ class TrackResult:
     n_points: int = 0
     part_mask: Optional[np.ndarray] = None
     fit_info: Optional[dict] = None
+
+
+class Tracker:
+    def __init__(self, model: AvatarModel, intrin, image_size,
+                 rtree=None, config: Optional[TrackerConfig] = None):
+        self.model = model
+        self.intrin = intrin
+        self.image_size = tuple(image_size)  # (H, W)
+        self.rtree = rtree
+        self.config = config or TrackerConfig()
+        self.ava = Avatar(model)
+
+        num_parts = (rtree.num_parts if rtree is not None
+                     else model.num_joints())
+        part_map = rtree.part_map if rtree is not None else None
+        self.optimizer = AvatarOptimizer(
+            self.ava, intrin, image_size, num_parts, part_map)
+        c, opt = self.config, self.optimizer
+        opt.beta_pose = c.beta_pose
+        opt.beta_shape = c.beta_shape
+        opt.max_iters_per_icp = c.iters_per_icp
+        opt.enable_occlusion = c.enable_occlusion
+        opt.point_weight = c.point_weight
+        opt.plane_weight = c.plane_weight
+        opt.robust = c.robust
+        opt.huber_k = c.huber_k
+        opt.robust_per_part = c.robust_per_part
+
+        self.bgsub: Optional[BGSubtractor] = None
+        self.com_pre = np.full((2, num_parts), -1.0)
+        self.com_pre[1, :] = 0.0
+        self.reinit = True
+        self.first_init = True
+        self.timer = StageTimer()
+        self._metrics_file = None
+
+    def set_background(self, background_xyz: np.ndarray) -> None:
+        self.bgsub = BGSubtractor(np.asarray(background_xyz, np.float32),
+                                  stride=self.config.bgsub_stride,
+                                  device=self.model.device)
+        self.bgsub.nn_dist_thresh_rel = self.config.nn_dist_thresh_rel
+        self.bgsub.neighb_thresh_rel = self.config.neighb_thresh_rel
+
+    def track(self, xyz_map: np.ndarray,
+              labels_override: Optional[np.ndarray] = None) -> TrackResult:
+        """Process one frame.
+
+        xyz_map: [H, W, 3] camera-space XYZ (z == 0 invalid).
+        labels_override: optional [H, W] uint8 part labels (255 =
+          background) in place of forest inference.
+        """
+        c = self.config
+        H, W = xyz_map.shape[:2]
+        depth = np.ascontiguousarray(xyz_map[..., 2]).copy()
+
+        # background subtraction (demo.cpp:179-193)
+        with self.timer.stage("bg_subtraction"):
+            if self.bgsub is not None:
+                sub = self.bgsub.run(xyz_map)
+                depth[sub >= 254] = 0.0
+                tl, br = self.bgsub.top_left, self.bgsub.bot_right
+            else:
+                tl, br = (0, 0), (W - 1, H - 1)
+
+        # part segmentation (demo.cpp:195-204)
+        with self.timer.stage("segmentation"):
+            if labels_override is not None:
+                part_mask = np.where(depth > 0, labels_override,
+                                     np.uint8(255))
+            elif self.rtree is not None:
+                part_mask = self.rtree.predict_best(
+                    depth, interval=c.rtree_interval, top_left=tl,
+                    bot_right=br)
+                part_mask = self.rtree.post_process(
+                    part_mask, self.com_pre, interval=c.rtree_interval,
+                    top_left=tl, bot_right=br,
+                    dist_to_pre_weight=c.dist_to_pre_weight)
+            else:
+                raise ValueError("need an rtree or labels_override")
+
+        # labelled cloud at the data stride (demo.cpp:215-250)
+        with self.timer.stage("gather"):
+            iv = c.data_interval
+            ys = np.arange(tl[1], br[1] + 1, iv)
+            xs = np.arange(tl[0], br[0] + 1, iv)
+            if len(ys) == 0 or len(xs) == 0:
+                self.reinit = True
+                return TrackResult(ok=False)
+            sub_mask = part_mask[np.ix_(ys, xs)]
+            sub_xyz = xyz_map[np.ix_(ys, xs)]
+            fg = (sub_mask != 255) & (sub_xyz[..., 2] > 0)
+            n_points = int(fg.sum())
+            if n_points < c.min_points / (iv * iv):
+                self.reinit = True
+                return TrackResult(ok=False, n_points=n_points,
+                                   part_mask=part_mask)
+            pts = sub_xyz[fg]
+            pts = np.stack([pts[:, 0], -pts[:, 1], pts[:, 2]], 1)
+            labels = sub_mask[fg].astype(np.int32)
+
+        # reinit state machine (demo.cpp:251-266): recentre at the cloud's
+        # centroid, zero shape, face the camera, more ICP iterations
+        reinitialized = False
+        icp_iters = c.frame_icp_iters
+        if self.reinit:
+            self.ava.p = pts.mean(axis=0)
+            self.ava.w[:] = 0.0
+            self.ava.r = np.tile(np.eye(3), (self.model.num_joints(), 1, 1))
+            self.ava.r[0] = np.diag([-1.0, 1.0, -1.0])
+            self.ava.update()
+            icp_iters = (c.initial_icp_iters if self.first_init
+                         else c.reinit_icp_iters)
+            self.reinit = False
+            self.first_init = False
+            reinitialized = True
+
+        # fit (demo.cpp:267-268)
+        with self.timer.stage("optimize"):
+            info = self.optimizer.optimize(pts, labels, icp_iters=icp_iters)
+
+        res = TrackResult(ok=True, reinitialized=reinitialized,
+                          n_points=n_points, part_mask=part_mask,
+                          fit_info=info)
+        self._log_metrics(res)
+        return res
+
+    # -- one JSON line of metrics per tracked frame --------------------------
+
+    def open_metrics(self, path: str) -> None:
+        """Write one JSON line per tracked frame to ``path``: frame index,
+        ok / reinit, point and match counts (also per part), fit cost and
+        the stages' latest ms."""
+        self._metrics_file = open(path, "w")
+        self._metrics_frame = 0
+
+    def close_metrics(self) -> None:
+        if self._metrics_file is not None:
+            self._metrics_file.close()
+            self._metrics_file = None
+
+    def _log_metrics(self, res: TrackResult) -> None:
+        if self._metrics_file is None:
+            return
+        rec = dict(frame=self._metrics_frame, ok=res.ok,
+                   reinit=res.reinitialized, n_points=res.n_points)
+        if res.fit_info:
+            rec.update(res.fit_info)
+        for k, v in self.timer.stats.items():
+            if v:
+                rec[f"{k}_ms"] = round(v[-1], 3)
+        self._metrics_file.write(json.dumps(rec) + "\n")
+        self._metrics_frame += 1
+
+    def render_overlay(self, rgb: Optional[np.ndarray] = None) -> np.ndarray:
+        """Lambert-shaded avatar blended over RGB (demo.cpp:275-307)."""
+        from avatar_tpu_torch.render.renderer import AvatarRenderer
+
+        lam = AvatarRenderer(self.ava, self.intrin).render_lambert(
+            self.image_size)
+        if rgb is None:
+            return lam
+        out = rgb.copy()
+        m = lam > 0
+        blend = (rgb[m].astype(np.int32) // 5 * 2 +
+                 np.stack([lam[m]] * 3, -1).astype(np.int32) // 5 * 3)
+        out[m] = blend.astype(np.uint8)
+        return out

@@ -1,12 +1,32 @@
-"""Stage profiling (counterpart of ``avatar_tpu/utils.py::StageTimer``)."""
+"""Data-dir discovery and stage profiling (counterparts of
+``resolve_root_path`` and ``StageTimer`` in ``avatar_tpu/utils.py``)."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Dict, List
 
 import numpy as np
+
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def resolve_root_path(rel_path: str) -> str:
+    """Locate a data file or directory: under the root that the
+    AVATAR_TPU_DIR / OPENARK_DIR / SMPLSYNTH_DIR variables name, where that
+    root holds ``data/avatar-model``, else under the repository root that
+    holds this package.  Unlike the reference (Util.cpp:64-109), it never
+    walks the working directory's parents, so a lookup without a variable
+    stays inside the checkout."""
+    test_rel = "data/avatar-model"
+    for env in ("AVATAR_TPU_DIR", "OPENARK_DIR", "SMPLSYNTH_DIR"):
+        root = os.environ.get(env)
+        if root and os.path.exists(os.path.join(root, test_rel)):
+            return os.path.join(root, rel_path)
+    return os.path.join(_REPO_ROOT, rel_path)
 
 
 class StageTimer:

@@ -12,7 +12,11 @@ each (any failure exits non-zero and prints no result):
 3. kernel — the kernel against its plain PyTorch version at the fit's
    shapes (N = 8192 steady state and 32768 reinit rows, 6656 model slots,
    14 groups, wildcards and padding): indices equal, d2 within rtol 1e-6,
-   ranged (the main path's) and full-range; CUDA-event times, median of 20;
+   ranged (B1, the fit's) and full-range (B2), and B2 at the unplanned
+   ``find_nn_stats``'s shape (8192 unsorted rows, 7168 slots with pad part
+   -2, chunk 1024); CUDA-event times, median of 20, beside each launch's
+   bound (the larger of its bytes over HBM bandwidth and its scanned pairs'
+   FP32 operations over the FP32 peak);
 4. slice — ``FusedTracker.track`` at 1280x720 with the bench's config, the
    3-tree r5 forest and background subtraction, on the 6 frames of
    tests/fixtures/torch_port_720p.npz (one reinit, then steady state).
@@ -47,10 +51,33 @@ each (any failure exits non-zero and prints no result):
    reference's accuracy-mode state (the bounds of phase 4, and 1.5 mm on
    the frames that ran the refine).  A control tracks the same synced
    frames with no refine and must land outside the 1.5 mm bound.
+8. host tracker — ``tracking.Tracker`` (bgsub, ``RTree.predict_best`` /
+   ``post_process`` with the r5 forest, ``AvatarOptimizer``) on the 6
+   frames as XYZ maps (``CameraIntrin.depth_to_xyz_np``).  Free-running:
+   every frame ok and finite, GT error beside the reference's (the JAX
+   ``Tracker`` in tests/fixtures/torch_port_720p_host.npz) and within 40
+   mm of ground truth or, where the reference itself is further, within
+   its worst frame + 10 mm; a control (the unfitted reinit pose) must miss
+   that bound; wall ms per frame.  Synced, frame by frame from the
+   reference's state: steady frames within 5 mm of the reference's joints,
+   and a control with the fit a no-op must miss that bound; the reinit
+   frame within the free-running bound, and its fit cut to the first 8 LM
+   steps within 5 mm of the reference's (past them that cold-start fit is
+   ill-conditioned, see PERF.md).  B1 held against its plain version on
+   every launch.
+9. library NN — frame 0's unpadded samples (the optimizer's input in the
+   synced run) against the model posed at the reference's pose after it:
+   ``find_nn_stats`` (B2) gives the same corr, mapped to data order, and
+   n_matched as ``find_nn_stats_planned`` over the bucketed plan (B1);
+   ``fit`` on the unpadded samples (N % 256 != 0) launches B2 and lands
+   within 0.5 mm (joints) of the bucketed fit, which must move further
+   than that from its start.  B2 held against its plain version on every
+   launch.
 
-The kernel counts are reset before each main path (phases 4, 6 and 7) and
-read after it.  The line before the last is the kernels' JSON record; the
-last line is ``{"ok": true, "device": {...}}``.
+The kernel counts are reset before each main path (phases 4, 6, 7, 8 and
+9) and read after it.  Every recorded launch must give indices equal and
+d2 equal to the last bit.  The line before the last is the kernels' JSON
+record; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -70,6 +97,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_720p.npz")
 REFINE_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                               "torch_port_720p_refine.npz")
+HOST_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                            "torch_port_720p_host.npz")
 FORESTS = [os.path.join(ROOT, "data", f"bench_forest_r5{s}.srtr")
            for s in ("", "_1", "_2")]
 H, W = 720, 1280
@@ -86,6 +115,12 @@ RENDER_FRAC = 1e-3       # differing pixels, as a share of body pixels
 RENDER_INTERIOR_MM = 1   # largest depth difference off the edges
 PROBE_MM = 1.0           # fit_rmse_mm bound (bench.py's gate)
 PROBE_REF_MM = 0.2       # |port - reference| fit_rmse_mm
+HOST_SLACK_MM = 10.0     # free-running host tracker over a reference > 40 mm
+LIBRARY_FIT_MM = 0.5     # unpadded (B2) fit vs bucketed (B1) fit, joints
+# the card's peaks for the bound (NVIDIA H100 SXM data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+OPS_PER_PAIR = 9         # 3 sub, 3 mul, 2 add, 1 compare per scanned pair
 
 
 def fail(msg: str) -> None:
@@ -159,36 +194,52 @@ def _compare(name, got, ref, n_rows):
 
 
 def phase_kernel(dev):
-    from avatar_tpu_torch.optim import nn_kernel
+    from avatar_tpu_torch.optim import correspond, nn_kernel
     from avatar_tpu_torch.perception.partgroups import SMPL24_NUM_GROUPS
-    from avatar_tpu_torch.testing import synthetic_nn_inputs
+    from avatar_tpu_torch.testing import (synthetic_nn_inputs,
+                                          synthetic_nn_stats_inputs)
 
     wild = SMPL24_NUM_GROUPS
     rec = {}
+    cases = []
     for n_rows in (8192, 32768):
         args = synthetic_nn_inputs(n_rows, seed=n_rows, device=dev)
-        # B2 (full range) at chunk 512: 6656 slots are not a multiple of
-        # the reference's 1024, and the tie rule makes the result
+        # B2 (full range) at chunk 512 on the planned layout: 6656 slots
+        # are not a multiple of 1024, and the tie rule makes the result
         # independent of the chunk
-        for name, fn, ref_fn, a in (
-                ("nn_argmin_ranges", nn_kernel.nn_argmin_ranges,
-                 nn_kernel.nn_argmin_ranges_ref, args),
-                ("nn_argmin", nn_kernel.nn_argmin, nn_kernel.nn_argmin_ref,
-                 args[:5])):
-            kw = dict(wild=wild, chunk=512)
-            got = fn(*a, **kw)
-            ref = ref_fn(*a, **kw)
-            max_abs, rel = _compare(name, got, ref, n_rows)
-            ms = _time_ms(lambda: fn(*a, **kw))
-            plain_ms = _time_ms(lambda: ref_fn(*a, **kw))
-            matched = int((got[1] >= 0).sum())
-            print(f"[kernel] {name} N={n_rows} Pp={a[2].shape[0]}: indices "
-                  f"equal ({matched} matched), d2 max abs err {max_abs:.3g}, "
-                  f"max rel {rel:.3g}; kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms (CUDA events, median of 20)",
-                  flush=True)
-            rec[(name, n_rows)] = dict(max_abs_err=max_abs, ms=ms,
-                                       plain_ms=plain_ms)
+        cases += [("nn_argmin_ranges", n_rows, args, dict(chunk=512)),
+                  ("nn_argmin", n_rows, args[:5], dict(chunk=512))]
+    # B2 as find_nn_stats launches it: unsorted, 7168 slots, chunk 1024
+    data, dpart, verts, part, visible = synthetic_nn_stats_inputs(
+        8192, device=dev)
+    c = verts.mean(0)
+    cases.append(("nn_argmin", "8192 unplanned",
+                  correspond.unplanned_nn_inputs(data - c, dpart, verts - c,
+                                                 part, visible),
+                  dict(chunk=1024)))
+    for name, n_rows, a, kw in cases:
+        kw = dict(kw, wild=wild)
+        fn = getattr(nn_kernel, name)
+        ref_fn = getattr(nn_kernel, name + "_ref")
+        got = fn(*a, **kw)
+        ref = ref_fn(*a, **kw)
+        max_abs, rel = _compare(name, got, ref, n_rows)
+        ms = _time_ms(lambda: fn(*a, **kw))
+        plain_ms = _time_ms(lambda: ref_fn(*a, **kw))
+        ranged = list(a) + ([] if name == "nn_argmin_ranges" else list(
+            nn_kernel._full_range(a[0].shape[0], a[2].shape[0], 256,
+                                  kw["chunk"], dev)))
+        bound_ms, bound_by = _bound(ranged, kw)
+        matched = int((got[1] >= 0).sum())
+        print(f"[kernel] {name} N={n_rows} Pp={a[2].shape[0]} chunk="
+              f"{kw['chunk']}: indices equal ({matched} matched), d2 max abs "
+              f"err {max_abs:.3g}, max rel {rel:.3g}; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms (CUDA events, median of 20); bound "
+              f"{bound_ms * 1e3:.3f} us by {bound_by} "
+              f"({_pairs(ranged, kw)} scanned pairs)", flush=True)
+        rec[(name, n_rows)] = dict(max_abs_err=max_abs, ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by)
     return rec
 
 
@@ -199,43 +250,78 @@ def _reset_counts() -> None:
 
 
 @contextlib.contextmanager
-def _recording(calls: list):
-    """Append a copy of the inputs of every ``nn_argmin_ranges`` call made
-    inside the block to ``calls``: the tensors a path hands the kernel."""
+def _recording(calls: list, name: str = "nn_argmin_ranges"):
+    """Append a copy of the inputs of every call of the wrapper ``name``
+    made inside the block to ``calls``: the tensors a path hands the
+    kernel, in the ranged form (B2's full range written out)."""
     from avatar_tpu_torch.optim import nn_kernel
 
-    real = nn_kernel.nn_argmin_ranges
+    real = getattr(nn_kernel, name)
 
     def record(*args, **kw):
-        calls.append(([a.clone() if hasattr(a, "clone") else a
-                       for a in args], dict(kw)))
+        copy = [a.clone() if hasattr(a, "clone") else a for a in args]
+        kw = {k: v for k, v in kw.items() if k != "_name"}
+        if name == "nn_argmin":
+            kw.setdefault("chunk", 1024)
+            copy += list(nn_kernel._full_range(
+                args[0].shape[0], args[2].shape[0], kw.get("tile_n", 256),
+                kw["chunk"], args[0].device))
+        calls.append((copy, kw))
         return real(*args, **kw)
 
-    nn_kernel.nn_argmin_ranges = record
+    setattr(nn_kernel, name, record)
     try:
         yield
     finally:
-        nn_kernel.nn_argmin_ranges = real
+        setattr(nn_kernel, name, real)
+
+
+def _pairs(args, kw) -> int:
+    """Scanned (row, model slot) pairs of one ranged launch: the rows of
+    each tile times the columns of its chunk range."""
+    tile_n, chunk = kw.get("tile_n", 256), kw.get("chunk", 512)
+    cs, ce = args[5].long(), args[6].long()
+    return int(((ce - cs).clamp(min=0) * chunk).sum()) * tile_n
+
+
+def _bound(args, kw):
+    """The least time (ms) the card could take for one ranged launch, and
+    what bounds it: each input read once and each output written once
+    over HBM bandwidth, against the scanned pairs' FP32 operations over
+    the FP32 peak."""
+    n_bytes = sum(a.numel() * a.element_size() for a in args) + \
+        args[0].shape[0] * 8
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = _pairs(args, kw) * OPS_PER_PAIR / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
 
 
 def _hold_recorded(tag: str, calls: list) -> float:
-    """The kernel against its plain version on every recorded input.
-    Returns the largest d2 abs error."""
+    """The kernel against its plain version on every recorded input:
+    indices equal and d2 equal to the last bit.  Returns the largest d2
+    abs error (0)."""
     from avatar_tpu_torch.optim import nn_kernel
 
     if not calls:
-        fail(f"[{tag}] no nn_argmin_ranges call recorded")
-    worst, shapes = 0.0, set()
+        fail(f"[{tag}] no kernel call recorded")
+    worst, shapes, pairs, bound = 0.0, set(), 0, 0.0
     for args, kw in calls:
-        kw.pop("_name", None)
         n = args[0].shape[0]
         got = nn_kernel.nn_argmin_ranges(*args, **kw)
         ref = nn_kernel.nn_argmin_ranges_ref(*args, **kw)
         worst = max(worst, _compare(f"[{tag}] recorded", got, ref, n)[0])
-        shapes.add((n, args[2].shape[0], kw.get("wild")))
+        shapes.add((n, args[2].shape[0], kw.get("chunk", 512),
+                    kw.get("wild")))
+        pairs += _pairs(args, kw)
+        bound += _bound(args, kw)[0]
+    if worst != 0.0:
+        fail(f"[{tag}] recorded launches: d2 max abs err {worst:.3g}, not 0")
     print(f"[{tag}] kernel vs plain on the inputs of its {len(calls)} "
-          f"launches (N, Pp, wild: {sorted(shapes)}): indices equal, d2 max "
-          f"abs err {worst:.3g}", flush=True)
+          f"launches (N, Pp, chunk, wild: {sorted(shapes)}): indices equal, "
+          f"d2 max abs err {worst:.3g}; {pairs / len(calls):.0f} scanned "
+          f"pairs per launch, bound {bound / len(calls) * 1e3:.3f} us per "
+          "launch", flush=True)
     return worst
 
 
@@ -542,6 +628,244 @@ def phase_accuracy(scene):
     return out
 
 
+def _host_tracker(scene):
+    from avatar_tpu_torch.perception.rtree import RTree
+    from avatar_tpu_torch.tracking import Tracker, TrackerConfig
+
+    rtree = RTree(FORESTS[0], device=scene.dev)
+    rtree.partmap_type = 0
+    tracker = Tracker(scene.model, scene.intrin, (H, W), rtree=rtree,
+                      config=TrackerConfig(**BENCH_CFG))
+    tracker.set_background(scene.intrin.depth_to_xyz_np(
+        np.full((H, W), scene.bg_m, np.float32)))
+    return tracker
+
+
+def _load_host_state(tracker, hf, i: int) -> None:
+    """Put the host tracker in the JAX reference's state before frame i."""
+    ava = tracker.ava
+    ava.p, ava.r, ava.w = (hf["state_p"][i].copy(), hf["state_r"][i].copy(),
+                           hf["state_w"][i].copy())
+    tracker.com_pre = hf["state_com_pre"][i].copy()
+    tracker.reinit = bool(hf["state_reinit"][i])
+    tracker.first_init = bool(hf["state_first_init"][i])
+
+
+def phase_host(scene):
+    """The reference's host ``Tracker`` on the card: free-running, then
+    frame by frame from the JAX reference's state.  Returns (launches,
+    steady wall median, largest d2 error, frame 0's optimizer input)."""
+    import torch
+
+    from avatar_tpu_torch.optim import nn_kernel
+
+    hf = np.load(HOST_FIXTURE)
+    ref, gt = hf["ref_joints"], scene.gt
+    if not hf["ref_ok"].all():
+        fail("[host] the fixture's reference run lost track")
+    ref_gt = [_joint_mm(ref[i], gt[i]) for i in range(len(gt))]
+    bound = max(TRACKING_MM, max(ref_gt) + HOST_SLACK_MM)
+    xyzs = [scene.intrin.depth_to_xyz_np(f.astype(np.float32) * 1e-3)
+            for f in scene.frames]
+
+    tracker = _host_tracker(scene)
+    _reset_counts()
+    runs = []
+    for xyz in xyzs:
+        t0 = time.perf_counter()
+        res = tracker.track(xyz)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        runs.append((res, ms, tracker.ava.cloud.copy(),
+                     tracker.ava.joint_pos.copy()))
+    launches = dict(nn_kernel.LAUNCHES)
+    for i, (res, ms, cloud, joints) in enumerate(runs):
+        print(f"[host] free-running frame {i}: ok={res.ok} "
+              f"reinit={res.reinitialized} n_points={res.n_points} "
+              f"(reference {int(hf['ref_n_points'][i])}) wall {ms:.1f} ms; "
+              f"joints vs GT {_joint_mm(joints, gt[i]):.2f} mm (reference "
+              f"{ref_gt[i]:.2f} mm, bound {bound:.2f}), vs reference "
+              f"{_joint_mm(joints, ref[i]):.3f} mm", flush=True)
+    for i, (res, ms, cloud, joints) in enumerate(runs):
+        e_gt = _joint_mm(joints, gt[i])
+        if not (np.isfinite(cloud).all() and np.isfinite(joints).all()
+                and cloud.shape == (scene.model.num_points(), 3)):
+            fail(f"[host] frame {i}: pose not finite or of the wrong shape")
+        if not res.ok or res.reinitialized != (i == 0):
+            fail(f"[host] frame {i}: ok={res.ok} "
+                 f"reinit={res.reinitialized}")
+        if e_gt > bound:
+            fail(f"[host] frame {i}: {e_gt:.1f} mm from ground truth")
+    if launches["nn_argmin_ranges"] <= 0:
+        fail("[host] the path never launched the nn_argmin_ranges kernel")
+
+    # frame by frame from the reference's state; the optimizer's inputs
+    # (samples and the avatar before the fit) are recorded
+    tracker = _host_tracker(scene)
+    opt_inputs, optimize = [], tracker.optimizer.optimize
+
+    def record_optimize(pts, labels, **kw):
+        a = tracker.ava
+        opt_inputs.append((np.array(pts), np.array(labels), a.p.copy(),
+                           a.r.copy(), a.w.copy(), a.joint_pos.copy()))
+        return optimize(pts, labels, **kw)
+
+    tracker.optimizer.optimize = record_optimize
+    worst, calls = 0.0, []
+    for i, xyz in enumerate(xyzs):
+        _load_host_state(tracker, hf, i)
+        with _recording(calls):
+            res = tracker.track(xyz)
+        joints = tracker.ava.joint_pos
+        d_ref, e_gt = _joint_mm(joints, ref[i]), _joint_mm(joints, gt[i])
+        print(f"[host] synced frame {i}: ok={res.ok} reinit="
+              f"{res.reinitialized} n_points={res.n_points} (reference "
+              f"{int(hf['ref_n_points'][i])}) joints vs reference "
+              f"{d_ref:.3f} mm, vs GT {e_gt:.2f} mm (reference "
+              f"{ref_gt[i]:.2f} mm)", flush=True)
+        if not res.ok or res.reinitialized != bool(hf["ref_reinit"][i]):
+            fail(f"[host] synced frame {i}: ok={res.ok} "
+                 f"reinit={res.reinitialized}")
+        if res.reinitialized and e_gt > bound:
+            fail(f"[host] synced reinit frame {i}: {e_gt:.1f} mm from "
+                 "ground truth")
+        if not res.reinitialized:
+            worst = max(worst, d_ref)
+            if d_ref > REF_MM:
+                fail(f"[host] synced frame {i}: joints {d_ref:.3f} mm from "
+                     f"the reference (bound {REF_MM} mm)")
+    # control: the same synced steady frames with the fit a no-op, so the
+    # avatar stays at the reference's state before the frame, must miss
+    # the bound, or the bound does not tell a working fit from none
+    def no_fit(pts, labels, **kw):
+        tracker.ava.update()
+        return dict(cost=0.0, n_matched=0, inner_iters=0, part_counts=[])
+
+    tracker.optimizer.optimize = no_fit
+    near = []
+    for i, xyz in enumerate(xyzs):
+        if hf["ref_reinit"][i]:
+            continue
+        _load_host_state(tracker, hf, i)
+        tracker.track(xyz)
+        near.append(_joint_mm(tracker.ava.joint_pos, ref[i]))
+    print("[host] control, synced steady frames with no fit: joints vs "
+          "reference " + ", ".join(f"{d:.3f}" for d in near) + " mm "
+          f"(bound {REF_MM} mm)", flush=True)
+    if min(near) <= REF_MM:
+        fail(f"[host] a frame with no fit lands {min(near):.3f} mm from the "
+             f"reference, within the {REF_MM} mm bound")
+    # the reinit fit where it is determined: its first 8 LM steps
+    pts, labels, p, r, w, joints0 = opt_inputs[0]
+    tracker.ava.p, tracker.ava.r, tracker.ava.w = p, r, w
+    with _recording(calls):
+        optimize(pts, labels, icp_iters=2)
+    d8 = _joint_mm(tracker.ava.joint_pos, hf["reinit8_joints"])
+    control = _joint_mm(joints0, gt[0])
+    print(f"[host] reinit fit of frame 0 cut to 8 LM steps: joints vs "
+          f"reference {d8:.3f} mm; control, the unfitted reinit pose: "
+          f"{control:.2f} mm from GT against the bound {bound:.2f} mm",
+          flush=True)
+    if d8 > REF_MM:
+        fail(f"[host] 8-step reinit fit {d8:.2f} mm from the reference")
+    if control <= bound:
+        fail("[host] the unfitted pose meets the free-running bound")
+    max_err = _hold_recorded("host", calls)
+    steady = float(np.median([r[1] for r in runs[2:]]))
+    print(f"[host] {len(runs)} frames ok, kernel launches {launches}, "
+          f"synced steady frames within {worst:.3f} mm of the reference, "
+          f"free-running steady-state wall median {steady:.1f} ms/frame",
+          flush=True)
+    return launches, steady, max_err, opt_inputs[0][:2]
+
+
+def phase_library(scene, samples):
+    """The public NN on frame 0's unpadded samples: B2 against B1, and
+    ``fit`` with N % 256 != 0 against the bucketed fit."""
+    import torch
+
+    from avatar_tpu_torch.core.lbs import lbs
+    from avatar_tpu_torch.optim import correspond, nn_kernel
+    from avatar_tpu_torch.optim.gauss_newton import Theta, fit
+    from avatar_tpu_torch.optim.optimizer import _bucket
+
+    hf, model, dev = np.load(HOST_FIXTURE), scene.model, scene.dev
+    opt = _host_tracker(scene).optimizer
+    pts_np, labels_np = samples
+    N = pts_np.shape[0]
+    B = _bucket(N)
+    if N % 256 == 0:
+        fail(f"[library] {N} samples: a multiple of 256, B2 would not run")
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                    device=dev)
+    pts, labels = f32(pts_np), torch.as_tensor(labels_np, device=dev)
+    pts_b = torch.cat([pts, torch.zeros(B - N, 3, device=dev)])
+    labels_b = torch.cat([labels, torch.full((B - N,), -1, device=dev,
+                                             dtype=torch.int32)])
+    # the reference's pose after frame 0
+    theta = Theta(f32(hf["state_p"][1]), f32(hf["state_r"][1]),
+                  f32(hf["state_w"][1]))
+    x = lbs(model.params, model.parents, theta.w, theta.p, theta.rots)[0]
+    vis = correspond.backface_visibility(x, opt._ctx.faces)
+    mpart = opt._ctx.model_part
+
+    _reset_counts()
+    b2_calls, b1_calls = [], []
+    with _recording(b2_calls, "nn_argmin"):
+        st2 = correspond.find_nn_stats(pts, labels, x, mpart, vis)
+    with _recording(b1_calls):
+        plan = correspond.make_nn_plan(pts_b, labels_b, mpart,
+                                       num_parts=opt.num_parts)
+        st1 = correspond.find_nn_stats_planned(plan, x, vis)
+    order = torch.argsort(labels_b, stable=True)
+    corr1 = torch.empty_like(st1.corr)
+    corr1[order] = st1.corr
+    same = int((corr1[:N] == st2.corr).sum())
+    print(f"[library] {N} samples (bucket {B}), {int(vis.sum())} visible "
+          f"vertices: find_nn_stats (B2) and the planned NN (B1) agree on "
+          f"{same} of {N} correspondences; n_matched {int(st2.n_matched)} "
+          f"and {int(st1.n_matched)}", flush=True)
+    if same != N or float(st2.n_matched) != float(st1.n_matched):
+        fail("[library] B2's correspondences differ from B1's")
+
+    kw = dict(n_steps=int(opt.max_iters_per_icp) * BENCH_CFG[
+        "frame_icp_iters"], use_jsr=model.use_joint_shape_regressor,
+        enable_occlusion=bool(opt.enable_occlusion), robust=bool(opt.robust),
+        plane_weight=float(opt.plane_weight),
+        point_weight=float(opt.point_weight), num_parts=int(opt.num_parts),
+        huber_k=float(opt.huber_k), robust_per_part=bool(opt.robust_per_part))
+    betas = (f32(opt.beta_pose), f32(opt.beta_shape))
+    before = nn_kernel.LAUNCHES["nn_argmin"]
+    with _recording(b2_calls, "nn_argmin"):
+        th2, dg2 = fit(opt._ctx, model.parents, pts, labels, theta, *betas,
+                       **kw)
+    fit_b2 = nn_kernel.LAUNCHES["nn_argmin"] - before
+    with _recording(b1_calls):
+        th1, dg1 = fit(opt._ctx, model.parents, pts_b, labels_b, theta,
+                       *betas, **kw)
+    launches = dict(nn_kernel.LAUNCHES)
+    joints = lambda th: lbs(model.params, model.parents, th.w, th.p,
+                            th.rots)[1].cpu().numpy()
+    j2, j1, j0 = joints(th2), joints(th1), joints(theta)
+    d, moved = _joint_mm(j2, j1), _joint_mm(j1, j0)
+    print(f"[library] fit on {N} unpadded samples: {fit_b2} B2 launches, "
+          f"{int(dg2.inner_iters)} accepted steps, n_matched "
+          f"{int(dg2.n_matched)}; bucketed fit {int(dg1.inner_iters)} and "
+          f"{int(dg1.n_matched)}; joints {d:.4f} mm apart (bound "
+          f"{LIBRARY_FIT_MM} mm); control, the bucketed fit's distance "
+          f"from its start: {moved:.4f} mm", flush=True)
+    if fit_b2 <= 0:
+        fail("[library] the unpadded fit never launched nn_argmin")
+    if d > LIBRARY_FIT_MM:
+        fail(f"[library] unpadded fit {d:.4f} mm from the bucketed fit")
+    if moved <= LIBRARY_FIT_MM:
+        fail(f"[library] the fit moves {moved:.4f} mm from its start, within "
+             f"the {LIBRARY_FIT_MM} mm bound: a no-op fit would pass")
+    err = max(_hold_recorded("library B2", b2_calls),
+              _hold_recorded("library B1", b1_calls))
+    return launches, err
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "avatar_tpu_torch")):
         fail("run from a checkout of the repository: avatar_tpu_torch/ "
@@ -558,25 +882,34 @@ def main():
     phase_render(scene)
     paths["probe"] = phase_probe(scene)
     paths["accuracy"] = phase_accuracy(scene)
-    # the paths launch only nn_argmin_ranges; their recorded inputs are
-    # held against its plain version
+    *host, samples = phase_host(scene)
+    paths["host"] = tuple(host)
+    paths["library"] = phase_library(scene, samples)
+    # every recorded launch of each path was held against the plain
+    # version, to the last bit
     path_err = max(out[-1] for out in paths.values())
 
     kernels = []
-    for name, replaces in (
-            ("nn_argmin_ranges", "avatar_tpu/optim/nn_pallas.py:121"),
-            ("nn_argmin", "avatar_tpu/optim/nn_pallas.py:170")):
+    for name, replaces, key in (
+            ("nn_argmin_ranges", "avatar_tpu/optim/nn_pallas.py:121",
+             ("nn_argmin_ranges", 8192)),
+            ("nn_argmin", "avatar_tpu/optim/nn_pallas.py:170",
+             ("nn_argmin", "8192 unplanned"))):
         by_path = {p: out[0][name] for p, out in paths.items()}
-        r = rec[(name, 8192)]
-        err = max(v["max_abs_err"] for (n, _), v in rec.items() if n == name)
-        if name == "nn_argmin_ranges":
-            err = max(err, path_err)
+        if not any(by_path.values()):
+            fail(f"{name} was launched on no path")
+        r = rec[key]
+        err = max([v["max_abs_err"] for (n, _), v in rec.items()
+                   if n == name] + [path_err])
         kernels.append({
             "name": name, "route": "cuda",
             "source": "avatar_tpu_torch/csrc/nn_argmin.cu",
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": err,
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "n_rows": 8192})
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "n_rows": 8192,
+            "model_slots": 6656 if name == "nn_argmin_ranges" else 7168})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,8 @@ from avatar_tpu_torch.testing import synthetic_model as t_synthetic_model
 
 @pytest.fixture(scope="module")
 def models():
-    return j_synthetic_model(detail=2), t_synthetic_model(detail=2)
+    return (j_synthetic_model(detail=2),
+            t_synthetic_model(detail=2, device="cpu"))
 
 
 @pytest.mark.parametrize("seed", [77, 3])

@@ -71,7 +71,7 @@ def test_lbs_and_fk(model, use_jsr):
         rng.normal(0, 0.4, (J, 3)), jnp.float32)))
     ref = jlbs.lbs(model.params, model.parents, jnp.asarray(w),
                    jnp.asarray(p), jnp.asarray(rots), use_jsr=use_jsr)
-    params = from_reference(model.params)
+    params = from_reference(model.params, "cpu")
     assert isinstance(params, tlbs.LBSParams)
     got = tlbs.lbs(params, model.parents, torch.as_tensor(w),
                    torch.as_tensor(p), torch.as_tensor(rots),
@@ -89,7 +89,8 @@ def test_gmm_residual(model):
     rng = np.random.default_rng(4)
     x = rng.normal(0, 0.2, (8, 69)).astype(np.float32)
     ref_r, ref_c = model.pose_prior.residual(jnp.asarray(x))
-    prior = synthetic_pose_prior(24, seed=8)        # synthetic_model's seed+1
+    # synthetic_model's seed + 1
+    prior = synthetic_pose_prior(24, seed=8, device="cpu")
     got_r, got_c = prior.residual(torch.as_tensor(x))
     np.testing.assert_array_equal(got_c.numpy(), np.asarray(ref_c))
     np.testing.assert_allclose(got_r.numpy(), np.asarray(ref_r), atol=ATOL)

@@ -1,5 +1,7 @@
 """On the card: the hand-written CUDA kernel against its plain PyTorch
-version, and the renderer against the same functions on the CPU.  Imports
+version (B1 at the fit's planned shapes, B2 at the unplanned
+``find_nn_stats``'s), and the renderer and ``find_nn_stats`` against the
+same functions on the CPU.  Imports
 no JAX (the card's machine has none); on a machine without a CUDA device
 every test skips.  On the card:
 
@@ -11,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from avatar_tpu_torch.optim import nn_kernel
+from avatar_tpu_torch.optim import correspond, nn_kernel
 from avatar_tpu_torch.perception.partgroups import SMPL24_NUM_GROUPS
-from avatar_tpu_torch.testing import synthetic_nn_inputs
+from avatar_tpu_torch.testing import (synthetic_nn_inputs,
+                                      synthetic_nn_stats_inputs)
 
 
 @pytest.fixture
@@ -71,7 +74,7 @@ def test_rasterize_on_card_matches_cpu(cuda):
     from avatar_tpu_torch.render import raster
     from avatar_tpu_torch.testing import synthetic_model
 
-    model = synthetic_model(detail=6)
+    model = synthetic_model(detail=6, device="cpu")
     ava = Avatar(model)
     ava.randomize(seed=77)
     ava.p = np.array([0.0, 0.1, 2.6])
@@ -99,7 +102,7 @@ def test_render_frame_on_card_matches_cpu(cuda):
     from avatar_tpu_torch.render import raster, renderer
     from avatar_tpu_torch.testing import synthetic_model
 
-    model = synthetic_model(detail=6)
+    model = synthetic_model(detail=6, device="cpu")
     ava = Avatar(model)
     ava.randomize(seed=20)
     ava.p = np.array([0.1, 0.0, 2.4])
@@ -116,3 +119,44 @@ def test_render_frame_on_card_matches_cpu(cuda):
     torch.testing.assert_close(got.depth.cpu()[same], ref.depth[same],
                                rtol=0.0, atol=1e-5)
     assert torch.equal(got.part_mask.cpu()[same], ref.part_mask[same])
+
+
+@pytest.mark.cuda
+def test_b2_at_find_nn_stats_shapes(cuda):
+    """B2 as ``find_nn_stats`` launches it: 8192 unsorted rows, the model
+    axis padded to 7168 slots with invisible slots of part -2, chunk 1024.
+    Indices equal to the plain version's, d2 equal to the last bit."""
+    data, dpart, verts, part, visible = synthetic_nn_stats_inputs(
+        8192, device=cuda)
+    c = verts.mean(0)
+    args = correspond.unplanned_nn_inputs(data - c, dpart, verts - c, part,
+                                          visible)
+    assert args[2].shape[0] == 7168 and (args[3][6624:] == -2).all()
+    before = nn_kernel.LAUNCHES["nn_argmin"]
+    d, i = nn_kernel.nn_argmin(*args, wild=SMPL24_NUM_GROUPS)
+    torch.cuda.synchronize()
+    assert nn_kernel.LAUNCHES["nn_argmin"] == before + 1
+    rd, ri = nn_kernel.nn_argmin_ref(*args, wild=SMPL24_NUM_GROUPS)
+    assert torch.equal(i, ri) and torch.equal(d, rd)
+    assert (i[args[1] == SMPL24_NUM_GROUPS] >= 0).all()
+    assert (i[args[1] < 0] == -1).all() and (i < 6624).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [8192, 5000])
+def test_find_nn_stats_on_card_matches_cpu(cuda, n_rows):
+    """``find_nn_stats`` on the card (B2) against its CPU result (the plain
+    version): corr and n_matched equal, cnt equal, s and q within 1e-6
+    relative (scatter-adds in another order)."""
+    args = synthetic_nn_stats_inputs(n_rows, seed=n_rows, device="cpu")
+    kw = dict(wild=SMPL24_NUM_GROUPS, wild_gate2=torch.tensor(0.04))
+    ref = correspond.find_nn_stats(*args, **kw)
+    got = correspond.find_nn_stats(*(a.to(cuda) for a in args),
+                                   wild=SMPL24_NUM_GROUPS,
+                                   wild_gate2=torch.tensor(0.04,
+                                                           device=cuda))
+    assert torch.equal(got.corr.cpu(), ref.corr)
+    assert float(got.n_matched) == float(ref.n_matched) > n_rows // 2
+    assert torch.equal(got.cnt.cpu(), ref.cnt)
+    torch.testing.assert_close(got.s.cpu(), ref.s, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got.q.cpu(), ref.q, rtol=1e-6, atol=0.0)

@@ -89,9 +89,9 @@ def test_fit_matches_reference(setup, planned_nn, freeze_shape,
     th_j, dg_j = jgn.fit(ctx, model.parents, jnp.asarray(pts),
                          jnp.asarray(parts), theta0, jnp.asarray(bp),
                          jnp.asarray(bs), **kw)
-    th_t, dg_t = tgn.fit(from_reference(ctx), model.parents,
+    th_t, dg_t = tgn.fit(from_reference(ctx, "cpu"), model.parents,
                          torch.as_tensor(pts), torch.as_tensor(parts),
-                         from_reference(theta0), torch.tensor(bp),
+                         from_reference(theta0, "cpu"), torch.tensor(bp),
                          torch.tensor(bs), **kw)
     np.testing.assert_allclose(th_t.p.numpy(), np.asarray(th_j.p), atol=1e-4)
     np.testing.assert_allclose(th_t.rots.numpy(), np.asarray(th_j.rots),
@@ -104,8 +104,9 @@ def test_fit_matches_reference(setup, planned_nn, freeze_shape,
     np.testing.assert_allclose(float(dg_t.cost), float(dg_j.cost), rtol=1e-3)
     # the fit moved toward the data
     assert float(dg_t.cost) < 0.5 * float(
-        tgn.fit(from_reference(ctx), model.parents, torch.as_tensor(pts),
-                torch.as_tensor(parts), from_reference(theta0),
+        tgn.fit(from_reference(ctx, "cpu"), model.parents,
+                torch.as_tensor(pts), torch.as_tensor(parts),
+                from_reference(theta0, "cpu"),
                 torch.tensor(bp), torch.tensor(bs),
                 **{**kw, "n_steps": 1})[1].cost)
 
@@ -115,8 +116,8 @@ def test_icp_jacobian_matches_jacfwd(setup):
     cloud through the retraction at delta = 0 (mirrors
     tests/test_optimizer.py)."""
     model, ctx_j, _, _, theta_j = setup
-    ctx = from_reference(ctx_j)
-    theta = from_reference(theta_j)
+    ctx = from_reference(ctx_j, "cpu")
+    theta = from_reference(theta_j, "cpu")
     parents = model.parents
     fwd = tgn._forward(ctx, parents, theta, True)
     Rg = fwd[3]
@@ -135,7 +136,7 @@ def test_icp_jacobian_matches_jacfwd(setup):
 
 def test_prior_terms_and_nanmedian(setup):
     model, ctx_j, _, _, theta_j = setup
-    ctx, theta = from_reference(ctx_j), from_reference(theta_j)
+    ctx, theta = from_reference(ctx_j, "cpu"), from_reference(theta_j, "cpu")
     Rg_j = jgn._forward(ctx_j, model.parents, theta_j, True)[3]
     ref = jgn._prior_terms(ctx_j, model.parents, theta_j, Rg_j,
                            jnp.float32(0.7), jnp.float32(0.3))
@@ -148,3 +149,31 @@ def test_prior_terms_and_nanmedian(setup):
     for v in (x, x[:5], np.full(3, np.nan, np.float32)):
         np.testing.assert_equal(float(tgn._nanmedian(torch.as_tensor(v))),
                                 float(jnp.nanmedian(jnp.asarray(v))))
+
+
+def test_fit_unaligned_rows_matches_reference(setup):
+    """N = 1000 rows (not a multiple of 256): both packages take their
+    unplanned NN every step, the reference's norm-expansion scan on the
+    CPU and the port's ``find_nn_stats`` (B2).  Same tolerances as the
+    planned fit."""
+    model, ctx, pts, parts, theta0 = setup
+    pts, parts = pts[:1000], parts[:1000]
+    kw = dict(n_steps=6, num_parts=6, plane_weight=2.0, huber_k=3.0,
+              robust_per_part=True, beta_temp=0.3, clamp_angle=0.25,
+              wild_gate=0.2, wild_weight=0.7)
+    bp, bs = np.float32(0.03), np.float32(0.12)
+    th_j, dg_j = jgn.fit(ctx, model.parents, jnp.asarray(pts),
+                         jnp.asarray(parts), theta0, jnp.asarray(bp),
+                         jnp.asarray(bs), **kw)
+    th_t, dg_t = tgn.fit(from_reference(ctx, "cpu"), model.parents,
+                         torch.as_tensor(pts), torch.as_tensor(parts),
+                         from_reference(theta0, "cpu"), torch.tensor(bp),
+                         torch.tensor(bs), **kw)
+    np.testing.assert_allclose(th_t.p.numpy(), np.asarray(th_j.p), atol=1e-4)
+    np.testing.assert_allclose(th_t.rots.numpy(), np.asarray(th_j.rots),
+                               atol=1e-4)
+    np.testing.assert_allclose(th_t.w.numpy(), np.asarray(th_j.w), atol=1e-3)
+    assert int(dg_t.n_matched) == int(dg_j.n_matched) > 600
+    np.testing.assert_array_equal(dg_t.part_counts.numpy(),
+                                  np.asarray(dg_j.part_counts))
+    assert int(dg_t.inner_iters) == int(dg_j.inner_iters)

@@ -56,11 +56,12 @@ def scene():
         0, 0.05, (24, 3)), jnp.float32))
     theta0 = theta._replace(p=theta.p + jnp.asarray([0.02, -0.01, 0.01]),
                             rots=jnp.einsum("jab,jbc->jac", pert, theta.rots))
-    return jmodel, t_synthetic_model(detail=2), frame, mask, theta0
+    return (jmodel, t_synthetic_model(detail=2, device="cpu"), frame, mask,
+            theta0)
 
 
-def _trees(cls, n):
-    trees = [cls(p) for p in FORESTS[:n]]
+def _trees(cls, n, **kw):
+    trees = [cls(p, **kw) for p in FORESTS[:n]]
     for t in trees:
         t.partmap_type = 0
     return trees
@@ -80,13 +81,13 @@ def test_frame_variant_matches_reference(scene, planned_nn, variant, over,
     jt = JTracker(jmodel, CameraIntrin(fx=FX, fy=FY, cx=CX, cy=CY), (H, W),
                   rtree=_trees(JRTree, n_trees) or None, config=JConfig(**cfg))
     tt = TTracker(tmodel, TIntrin(fx=FX, fy=FY, cx=CX, cy=CY), (H, W),
-                  rtree=_trees(TRTree, n_trees) or None,
+                  rtree=_trees(TRTree, n_trees, device="cpu") or None,
                   config=TConfig(**cfg))
     bg = np.full((H, W), WALL, np.float32)
     jt.set_background(bg)
     tt.set_background(bg)
     jt._theta = jt._theta_prev = theta0
-    tt._theta = tt._theta_prev = from_reference(theta0)
+    tt._theta = tt._theta_prev = from_reference(theta0, "cpu")
     lab = jt._map_labels(jt._pre_stride(mask))
     out_j = jt._run(jnp.asarray(jt._pre_stride(frame)),
                     jnp.asarray(lab, jnp.uint8), 3)

@@ -1,10 +1,12 @@
 """Parity of the port's part-sorted NN with the JAX reference.
 
 The plain PyTorch version of the CUDA kernel (``nn_argmin_ranges_ref``) is
-held against the Pallas kernel run in interpret mode: indices equal, d2
+held against the Pallas kernels run in interpret mode: indices equal, d2
 within rtol 1e-6 (both compute (dx*dx + dy*dy) + dz*dz in float32; the
 tolerance covers a contracted multiply-add on either side).  The plan and
-the planned correspondence are held against the reference's.  The CUDA
+the planned correspondence are held against the reference's, and the
+unplanned ``find_nn_stats`` (B2) against the reference's Pallas branch,
+or its norm-expansion XLA scan where that branch is off.  The CUDA
 kernel itself is held against the plain version on the card by
 ``tests/test_torch_cuda.py``, which imports no JAX (the card's machine has
 none).
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from avatar_tpu.optim import correspond as jcorr
@@ -161,3 +164,118 @@ def test_cpu_wrapper_takes_plain_version_without_launching():
     rd, ri = nn_kernel.nn_argmin_ranges_ref(*inputs, wild=WILD)
     assert torch.equal(i, ri) and torch.equal(d, rd)
     assert nn_kernel.LAUNCHES == before
+
+
+
+@pytest.fixture
+def interpreted_b2(monkeypatch):
+    """The reference's ``find_nn_stats`` on its Pallas branch, with B2's
+    own body ``_kernel`` in interpret mode: ``nn_pallas.pl`` is swapped for
+    a proxy whose ``pallas_call`` passes ``interpret=True``.  Yields the
+    list of kernel bodies traced through it."""
+    pl = nn_pallas.pl
+    traced = []
+
+    class InterpretPallas:
+        def __getattr__(self, name):
+            return getattr(pl, name)
+
+        @staticmethod
+        def pallas_call(kernel, *args, **kw):
+            traced.append(kernel.func)
+            return pl.pallas_call(kernel, *args, interpret=True, **kw)
+
+    jax.clear_caches()
+    monkeypatch.setattr(jcorr, "_pallas_enabled", lambda: True)
+    monkeypatch.setattr(nn_pallas, "pl", InterpretPallas())
+    yield traced
+    jax.clear_caches()
+
+
+def test_b2_kernel_body_matches_plain(interpreted_b2):
+    """B2's Pallas body ``_kernel`` at the reference's chunk 1024, with
+    unsorted clouds, wildcards and pad slots of part -2, against the plain
+    version of the port's kernel."""
+    data, dpart, model, mpart, visible = _clouds(6, P=1800)
+    pad = 2048 - model.shape[0]
+    model = np.concatenate([model, np.zeros((pad, 3), np.float32)])
+    mpart = np.concatenate([mpart, np.full(pad, -2, np.int32)])
+    visible = np.concatenate([visible, np.zeros(pad, bool)])
+    inputs = (data, dpart, model, mpart, visible)
+    ref_d, ref_i = nn_pallas.nn_argmin(*[jnp.asarray(a) for a in inputs],
+                                       tile_n=256, chunk=1024, wild=WILD)
+    got_d, got_i = nn_kernel.nn_argmin_ref(
+        *[torch.as_tensor(a) for a in inputs], tile_n=256, chunk=1024,
+        wild=WILD)
+    ref_i = np.asarray(ref_i)
+    np.testing.assert_array_equal(got_i.numpy(), ref_i)
+    ok = ref_i >= 0
+    np.testing.assert_allclose(got_d.numpy()[ok], np.asarray(ref_d)[ok],
+                               rtol=1e-6)
+    assert (ref_i[dpart == WILD] >= 0).all() and (ref_i < 1800).all()
+    assert interpreted_b2 == [nn_pallas._kernel]
+
+
+def _stats_inputs(seed, N, P=1500, n_data=None):
+    rng = np.random.default_rng(seed)
+    n_data = N if n_data is None else n_data
+    model = rng.normal(size=(P, 3)).astype(np.float32)
+    mpart = rng.integers(0, NUM_PARTS, P).astype(np.int32)
+    visible = rng.random(P) < 0.7
+    data = rng.normal(size=(N, 3)).astype(np.float32)
+    dpart = np.full(N, -1, np.int32)
+    dpart[:n_data] = rng.integers(0, NUM_PARTS, n_data)
+    dpart[:n_data:9] = WILD
+    return data, dpart, model, mpart, visible
+
+
+def _both_stats(inputs, gate2):
+    ref = jcorr.find_nn_stats(*[jnp.asarray(a) for a in inputs], wild=WILD,
+                              wild_gate2=jnp.float32(gate2))
+    got = tcorr.find_nn_stats(*[torch.as_tensor(a) for a in inputs],
+                              wild=WILD, wild_gate2=torch.tensor(gate2))
+    np.testing.assert_array_equal(got.corr.numpy(), np.asarray(ref.corr))
+    assert float(got.n_matched) == float(ref.n_matched)
+    return got, ref
+
+
+@pytest.mark.parametrize("N", [512, 1024])
+def test_find_nn_stats_matches_pallas_branch(interpreted_b2, N):
+    """The port's unplanned NN (B2's plain version here) against the
+    reference's Pallas branch: corr and n_matched equal; cnt, s and q
+    within 1e-6 relative (float32 sums in another order)."""
+    inputs = _stats_inputs(N, N, n_data=N - 100)
+    got, ref = _both_stats(inputs, np.float32(0.02))
+    assert interpreted_b2 == [nn_pallas._kernel]
+    assert (got.corr.numpy()[inputs[1] == WILD] == -1).any(), "gate bites"
+    np.testing.assert_allclose(got.cnt.numpy(), np.asarray(ref.cnt),
+                               rtol=1e-6)
+    np.testing.assert_allclose(got.s.numpy(), np.asarray(ref.s), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(float(got.q), float(ref.q), rtol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_find_nn_stats_unaligned_matches_xla_branch(seed):
+    """N = 97 rows, where the reference's Pallas branch is off: the
+    reference scans by norm expansion, the port pads to 256 rows and takes
+    direct differences.  corr equal on these seeds (no near-tie within the
+    two roundings), statistics within 1e-5."""
+    inputs = _stats_inputs(seed, 97, P=200)
+    got, ref = _both_stats(inputs, np.float32(4.0))
+    np.testing.assert_allclose(got.cnt.numpy(), np.asarray(ref.cnt),
+                               atol=1e-5)
+    np.testing.assert_allclose(got.s.numpy(), np.asarray(ref.s), atol=1e-5)
+    np.testing.assert_allclose(float(got.q), float(ref.q), rtol=1e-5)
+
+
+def test_backface_visibility_matches_reference():
+    rng = np.random.default_rng(9)
+    cloud = rng.normal(size=(400, 3)).astype(np.float32)
+    faces = rng.integers(0, 400, (600, 3)).astype(np.int32)
+    ref = np.asarray(jcorr.backface_visibility(jnp.asarray(cloud),
+                                               jnp.asarray(faces)))
+    got = tcorr.backface_visibility(torch.as_tensor(cloud),
+                                    torch.as_tensor(faces))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert 0 < ref.sum() < 400

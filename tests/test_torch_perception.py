@@ -103,7 +103,7 @@ def test_read_srtr_and_partmap_match_reference(forest):
     for f in ("u", "v", "thresh", "lnode", "rnode", "leafid", "leaf_data"):
         np.testing.assert_array_equal(getattr(got, f), getattr(ref, f), f)
     assert got.num_parts == ref.num_parts
-    t = trtree.RTree(FOREST)
+    t = trtree.RTree(FOREST, device="cpu")
     assert t._max_depth == forest._max_depth
     for f in trtree.TreeTensors._fields:
         np.testing.assert_array_equal(getattr(t._tree, f).numpy(),
@@ -133,9 +133,9 @@ def test_walk_pixels_leaf_ids(forest, stride):
                              jnp.asarray(depth.reshape(-1)), (Hp, Wp),
                              forest._max_depth, jnp.asarray(tl),
                              jnp.asarray(br))
-    got = trtree.walk_pixels(from_reference(tree_j), torch.as_tensor(ys),
-                             torch.as_tensor(xs), torch.as_tensor(z),
-                             torch.as_tensor(fg),
+    got = trtree.walk_pixels(from_reference(tree_j, "cpu"),
+                             torch.as_tensor(ys), torch.as_tensor(xs),
+                             torch.as_tensor(z), torch.as_tensor(fg),
                              torch.as_tensor(depth.reshape(-1)), (Hp, Wp),
                              forest._max_depth, tl, br)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
@@ -175,7 +175,7 @@ def test_synthetic_arrays_copy(detail):
 
 def test_model_derived_fields_and_prior():
     ref = jtesting.synthetic_model(detail=1)
-    got = ttesting.synthetic_model(detail=1)
+    got = ttesting.synthetic_model(detail=1, device="cpu")
     for f in ("main_joint", "ancestor_mask", "joint_shape_reg_base",
               "joint_shape_reg", "faces"):
         np.testing.assert_array_equal(getattr(got, f), getattr(ref, f), f)
@@ -193,13 +193,13 @@ def test_model_npz_loading(tmp_path):
     from avatar_tpu.core.model import AvatarModel as JModel
     from avatar_tpu_torch.core.model import AvatarModel as TModel
 
-    ref, got = JModel(d), TModel(d)
+    ref, got = JModel(d), TModel(d, device="cpu")
     np.testing.assert_array_equal(got.parent, ref.parent)
     np.testing.assert_array_equal(got.v_template, ref.v_template)
     np.testing.assert_array_equal(got.pose_prior.prec_cho.numpy(),
                                   np.asarray(ref.pose_prior.prec_cho))
     with pytest.raises(FileNotFoundError):
-        TModel(str(tmp_path / "missing"))
+        TModel(str(tmp_path / "missing"), device="cpu")
 
 
 def test_tracker_config_and_partgroups_copies():

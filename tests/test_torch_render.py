@@ -55,7 +55,7 @@ def test_rasterize_cases(case):
                             jnp.asarray(faces), size, size, budget=budget)
     got = traster.rasterize(torch.as_tensor(proj), torch.as_tensor(z),
                             torch.as_tensor(faces), size, size, budget)
-    ref = from_reference(ref)
+    ref = from_reference(ref, "cpu")
     np.testing.assert_array_equal(got.fid.numpy(), ref.fid.numpy())
     assert int(got.n_dropped) == int(ref.n_dropped)
     np.testing.assert_allclose(got.depth.numpy(), ref.depth.numpy(),
@@ -86,7 +86,8 @@ INTRIN = dict(fx=220.0, fy=220.0, cx=128.0, cy=128.0)
 
 @pytest.fixture(scope="module")
 def posed():
-    jm, tm = j_synthetic_model(detail=2), t_synthetic_model(detail=2)
+    jm = j_synthetic_model(detail=2)
+    tm = t_synthetic_model(detail=2, device="cpu")
     ja = JAvatar(jm)
     ja.randomize(seed=20)
     ja.p = np.array([0.0, 0.1, 2.6])
@@ -169,6 +170,6 @@ def test_avatar_renderer_matches_reference(posed):
 
 
 def test_renderer_requires_update():
-    ta = TAvatar(t_synthetic_model(detail=1))
+    ta = TAvatar(t_synthetic_model(detail=1, device="cpu"))
     with pytest.raises(RuntimeError):
         trenderer.AvatarRenderer(ta, TIntrin(**INTRIN)).render_depth((32, 32))

@@ -201,9 +201,9 @@ def _both_refine(setup, beta, **kw):
     ref = jgn.fit_refine(ctx, model.parents, jnp.asarray(ring),
                          jnp.asarray(pts), jnp.asarray(parts), theta0,
                          jnp.asarray(b), jnp.asarray(b), **kw)
-    got = tgn.fit_refine(from_reference(ctx), model.parents,
+    got = tgn.fit_refine(from_reference(ctx, "cpu"), model.parents,
                          torch.as_tensor(ring), torch.as_tensor(pts),
-                         torch.as_tensor(parts), from_reference(theta0),
+                         torch.as_tensor(parts), from_reference(theta0, "cpu"),
                          torch.tensor(b), torch.tensor(b), **kw)
     return ref, got
 
@@ -246,7 +246,7 @@ def test_fit_refine_matches_reference(refine_setup, planned_nn,
     np.testing.assert_allclose(th_t.p.numpy(), np.asarray(th_j.p), atol=1e-4)
     v_j = np.asarray(jlbs(model.params, model.parents, th_j.w, th_j.p,
                           th_j.rots)[0])
-    v_t = t_lbs(from_reference(model.params), model.parents, th_t.w,
+    v_t = t_lbs(from_reference(model.params, "cpu"), model.parents, th_t.w,
                 th_t.p, th_t.rots)[0].numpy()
     np.testing.assert_allclose(v_t, v_j, atol=5e-4)
     if freeze_shape:
@@ -286,7 +286,7 @@ def test_fit_rmse_probe_matches_reference(planned_nn):
         (model, _context(model), ring, pts, parts, theta), 1e-4, n_steps=20)
     rmse_j = _rmse_mm(jlbs(model.params, model.parents, th_j.w, th_j.p,
                            th_j.rots)[0], gt.cloud)
-    rmse_t = _rmse_mm(t_lbs(from_reference(model.params), model.parents,
+    rmse_t = _rmse_mm(t_lbs(from_reference(model.params, "cpu"), model.parents,
                             th_t.w, th_t.p, th_t.rots)[0], gt.cloud)
     assert rmse_j < 1.0 and rmse_t < 1.0, (rmse_j, rmse_t)
     assert abs(rmse_t - rmse_j) < 0.2, (rmse_j, rmse_t)
@@ -295,7 +295,7 @@ def test_fit_rmse_probe_matches_reference(planned_nn):
 def test_converged_fit_submillimeter():
     """The port's own fit_rmse_mm gate at the quick configuration: render
     with the port, refine 20 steps from the ground truth, < 1 mm."""
-    model = t_synthetic_model(detail=2)
+    model = t_synthetic_model(detail=2, device="cpu")
     gt = _gt_pose(TAvatar(model))
     rend = TRenderer(gt, CameraIntrin(**INTRIN))
     pts, parts = _probe_inputs(rend.render_depth((H, W)),
@@ -311,3 +311,19 @@ def test_converged_fit_submillimeter():
     rmse_mm = _rmse_mm(v.numpy(), gt.cloud)
     assert int(diag.n_matched) > 300
     assert rmse_mm < 1.0, f"converged fit drifted {rmse_mm:.2f} mm off GT"
+
+
+def test_fit_refine_unaligned_rows_matches_reference(refine_setup):
+    """2000 rows (not a multiple of 256): both packages take their
+    unplanned NN, the reference's norm-expansion scan on the CPU and the
+    port's ``find_nn_stats`` (B2).  One LM step as above, the same
+    tolerances."""
+    model, ctx, ring, pts, parts, theta0 = refine_setup
+    setup = (model, ctx, ring, pts[:2000], parts[:2000], theta0)
+    (th_j, dg_j), (th_t, dg_t) = _both_refine(setup, 0.3, n_steps=1)
+    assert int(dg_t.n_matched) == int(dg_j.n_matched) > 1850
+    assert int(dg_t.inner_iters) == int(dg_j.inner_iters) == 1
+    np.testing.assert_allclose(th_t.p.numpy(), np.asarray(th_j.p), atol=1e-4)
+    np.testing.assert_allclose(th_t.rots.numpy(), np.asarray(th_j.rots),
+                               atol=1e-4)
+    np.testing.assert_allclose(th_t.w.numpy(), np.asarray(th_j.w), atol=1e-3)

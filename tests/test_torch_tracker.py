@@ -94,8 +94,8 @@ def _frames(model, n=3):
     return frames
 
 
-def _trees(cls):
-    trees = [cls(p) for p in FORESTS]
+def _trees(cls, **kw):
+    trees = [cls(p, **kw) for p in FORESTS]
     for t in trees:
         t.partmap_type = 0
     return trees
@@ -103,13 +103,13 @@ def _trees(cls):
 
 def test_fused_tracker_matches_reference(planned_nn):
     jmodel = j_synthetic_model(detail=2)
-    tmodel = t_synthetic_model(detail=2)
+    tmodel = t_synthetic_model(detail=2, device="cpu")
     frames = _frames(jmodel)
     bg = np.full((H, W), WALL, np.float32)
     jt = JTracker(jmodel, CameraIntrin(fx=FX, fy=FY, cx=CX, cy=CY), (H, W),
                   rtree=_trees(JRTree), config=JConfig(**CFG))
     tt = TTracker(tmodel, TIntrin(fx=FX, fy=FY, cx=CX, cy=CY), (H, W),
-                  rtree=_trees(TRTree), config=TConfig(**CFG))
+                  rtree=_trees(TRTree, device="cpu"), config=TConfig(**CFG))
     jt.set_background(bg)
     tt.set_background(bg)
     for i, frame in enumerate(frames):
@@ -151,12 +151,12 @@ def test_track_state_machine_matches_reference(planned_nn):
     same ok / reinit flags and n_points, and joints within 1 mm.  Then an
     empty frame: both trackers declare the person lost."""
     jmodel = j_synthetic_model(detail=2)
-    tmodel = t_synthetic_model(detail=2)
+    tmodel = t_synthetic_model(detail=2, device="cpu")
     frames = _frames(jmodel)
     jt = JTracker(jmodel, CameraIntrin(fx=FX, fy=FY, cx=CX, cy=CY), (H, W),
                   rtree=_trees(JRTree), config=JConfig(**CFG))
     tt = TTracker(tmodel, TIntrin(fx=FX, fy=FY, cx=CX, cy=CY), (H, W),
-                  rtree=_trees(TRTree), config=TConfig(**CFG))
+                  rtree=_trees(TRTree, device="cpu"), config=TConfig(**CFG))
     bg = np.full((H, W), WALL, np.float32)
     jt.set_background(bg)
     tt.set_background(bg)
@@ -234,14 +234,14 @@ def test_fused_tracker_refine_matches_reference(planned_nn, monkeypatch):
     monkeypatch.setattr(jtf, "fit_refine", j_spy)
     monkeypatch.setattr(ttf, "fit_refine", t_spy)
     jmodel = j_synthetic_model(detail=2)
-    tmodel = t_synthetic_model(detail=2)
+    tmodel = t_synthetic_model(detail=2, device="cpu")
     frames = _frames(jmodel)
     bg = np.full((H, W), WALL, np.float32)
     cfg = dict(CFG, refine_every=1, refine_steps=2)
     jt = JTracker(jmodel, CameraIntrin(fx=FX, fy=FY, cx=CX, cy=CY), (H, W),
                   rtree=_trees(JRTree), config=JConfig(**cfg))
     tt = TTracker(tmodel, TIntrin(fx=FX, fy=FY, cx=CX, cy=CY), (H, W),
-                  rtree=_trees(TRTree), config=TConfig(**cfg))
+                  rtree=_trees(TRTree, device="cpu"), config=TConfig(**cfg))
     np.testing.assert_array_equal(tt._ring.numpy(), np.asarray(jt._ring))
     jt.set_background(bg)
     tt.set_background(bg)
@@ -276,5 +276,5 @@ def test_fused_tracker_refine_matches_reference(planned_nn, monkeypatch):
         jt._theta_prev = jt._theta
         jt._theta, jt.com_pre = out_j.theta, out_j.com_pre
         tt._theta_prev = tt._theta
-        tt._theta = from_reference(out_j.theta)
-        tt.com_pre = from_reference(out_j.com_pre)
+        tt._theta = from_reference(out_j.theta, "cpu")
+        tt.com_pre = from_reference(out_j.com_pre, "cpu")
