@@ -15,6 +15,11 @@ AvatarOptimizer.cpp:830-968).  Two entry points, as in the reference:
   back to the reference's norm-expansion XLA scan, so the distances are
   direct differences on the CPU and on the card alike.
 
+Both hand the whole search to ``nn_kernel.nn_match``: on the card one host
+call that recentres, permutes and pads the clouds, scans, and applies the
+match rules; on the CPU its plain version.  What stays here is the model's
+mean and the per-vertex statistics.
+
 The reference's TPU gating (``_pallas_enabled``) is not carried over.
 """
 
@@ -46,6 +51,8 @@ class NNPlan(NamedTuple):
     cend: torch.Tensor       # [N // tile_n] one-past-last chunk per tile
     tile_n: int
     chunk: int
+    match: Optional[nn_kernel.MatchArgs] = None  # the plan as ``nn_match``
+    #                          takes it, checked once (``make_nn_plan``)
 
 
 def make_nn_plan(data_pts: torch.Tensor, data_part: torch.Tensor,
@@ -98,8 +105,30 @@ def make_nn_plan(data_pts: torch.Tensor, data_part: torch.Tensor,
     cend = torch.where(empty, zero, torch.where(
         has_wild, torch.full_like(p_hi, n_real_chunks),
         (off[p_hic + 1] + chunk - 1) // chunk)).to(torch.int32)
+    dpts, dpart, mpart_s = (dpts.contiguous(), dpart.contiguous(),
+                            mpart_s.contiguous())
+    if mperm is not None:
+        mperm = mperm.contiguous()
+    match = nn_kernel.prepare_match(
+        "nn_argmin_ranges", dpts, dpart, N, mperm, mpart_s, P,
+        mpart_s.shape[0], cstart, cend, tile_n, chunk)
     return NNPlan(dpts=dpts, dpart=dpart, mperm=mperm, mpart_s=mpart_s,
-                  cstart=cstart, cend=cend, tile_n=tile_n, chunk=chunk)
+                  cstart=cstart, cend=cend, tile_n=tile_n, chunk=chunk,
+                  match=match)
+
+
+_zero_stats = {}     # (P, dtype, device) -> (cnt, s, q), all zero
+
+
+def _no_stats(P: int, dtype, dev):
+    """The statistics of a search that was not asked for them: zeros, made
+    once per size and shared (read-only) by every such result."""
+    key = (P, dtype, dev)
+    if key not in _zero_stats:
+        _zero_stats[key] = (torch.zeros(P, dtype=dtype, device=dev),
+                            torch.zeros((P, 3), dtype=dtype, device=dev),
+                            torch.zeros((), dtype=dtype, device=dev))
+    return _zero_stats[key]
 
 
 def find_nn_stats_planned(plan: NNPlan, model_cloud: torch.Tensor,
@@ -117,48 +146,19 @@ def find_nn_stats_planned(plan: NNPlan, model_cloud: torch.Tensor,
     dtype = model_cloud.dtype
     dev = model_cloud.device
     center = torch.mean(model_cloud, dim=0)
-    if plan.mperm is None:
-        pad = plan.mpart_s.shape[0] - P
-        xs = model_cloud - center
-        vis_s = visible
-        if pad:
-            xs = torch.cat([xs, torch.zeros((pad, 3), dtype=dtype,
-                                            device=dev)])
-            vis_s = torch.cat([vis_s, torch.zeros(pad, dtype=torch.bool,
-                                                  device=dev)])
-    else:
-        perm = plan.mperm.long()
-        xs = (model_cloud - center)[perm]
-        vis_s = visible[perm]
-    dpts_c = plan.dpts - center
-
-    best_d, best_i = nn_kernel.nn_argmin_ranges(
-        dpts_c.contiguous(), plan.dpart.contiguous(), xs.contiguous(),
-        plan.mpart_s.contiguous(), vis_s.contiguous(), plan.cstart,
-        plan.cend, tile_n=plan.tile_n, chunk=plan.chunk, wild=wild)
-
-    matched = (best_i >= 0) & (plan.dpart >= 0)
-    if wild_gate2 is not None:
-        matched = matched & ((plan.dpart != wild) | (best_d <= wild_gate2))
-    if plan.mperm is None:
-        corr = torch.where(matched, best_i, -1)
-    else:
-        corr = torch.where(matched, plan.mperm[best_i.clamp(min=0).long()],
-                           -1)
-    corr = corr.to(torch.int32)
-    wgt = matched.to(dtype)
+    _, corr, wgt, n_matched = nn_kernel.nn_match(
+        plan.match, model_cloud, center, visible, wild, wild_gate2)
     if with_stats:
-        idx = torch.where(matched, corr, P).long()
+        idx = torch.where(corr >= 0, corr, P).long()
         cnt = torch.zeros(P + 1, dtype=dtype, device=dev).index_add_(
             0, idx, wgt)[:P]
         s = torch.zeros((P + 1, 3), dtype=dtype, device=dev).index_add_(
             0, idx, plan.dpts * wgt[:, None])[:P]
+        dpts_c = plan.dpts - center
         q = torch.sum(torch.sum(dpts_c * dpts_c, dim=-1) * wgt)
     else:
-        cnt = torch.zeros(P, dtype=dtype, device=dev)
-        s = torch.zeros((P, 3), dtype=dtype, device=dev)
-        q = torch.zeros((), dtype=dtype, device=dev)
-    return CorrStats(cnt=cnt, s=s, q=q, n_matched=torch.sum(wgt), corr=corr)
+        cnt, s, q = _no_stats(P, dtype, dev)
+    return CorrStats(cnt=cnt, s=s, q=q, n_matched=n_matched, corr=corr)
 
 
 def backface_visibility(cloud: torch.Tensor, faces: torch.Tensor
@@ -177,34 +177,24 @@ def backface_visibility(cloud: torch.Tensor, faces: torch.Tensor
     return hits > 0
 
 
-def unplanned_nn_inputs(data_c: torch.Tensor, data_part: torch.Tensor,
-                        model_c: torch.Tensor, model_part: torch.Tensor,
-                        visible: torch.Tensor):
-    """The arguments of ``nn_kernel.nn_argmin`` as ``find_nn_stats`` builds
-    them from recentred clouds: the model axis padded to a multiple of
-    1024 with invisible slots of part -2 (the reference's Pallas branch),
-    the data rows to a multiple of 256 with label -1."""
-    dtype, dev = data_c.dtype, data_c.device
-    pad = (-model_c.shape[0]) % 1024
-    rpad = (-data_c.shape[0]) % 256
-    return (torch.cat([data_c, torch.zeros((rpad, 3), dtype=dtype,
-                                           device=dev)]),
-            torch.cat([data_part.to(torch.int32),
-                       torch.full((rpad,), -1, dtype=torch.int32,
-                                  device=dev)]),
-            torch.cat([model_c, torch.zeros((pad, 3), dtype=dtype,
-                                            device=dev)]),
-            torch.cat([model_part.to(torch.int32),
-                       torch.full((pad,), -2, dtype=torch.int32,
-                                  device=dev)]),
-            torch.cat([visible, torch.zeros(pad, dtype=torch.bool,
-                                            device=dev)]))
+def unplanned_match(data_pts: torch.Tensor, data_part: torch.Tensor,
+                    model_part: torch.Tensor) -> nn_kernel.MatchArgs:
+    """The loop-invariant side of ``find_nn_stats`` as ``nn_match`` takes
+    it (the reference's Pallas branch): the data rows padded to a multiple
+    of 256 with label -1, the model axis to a multiple of 1024 with
+    invisible slots of part -2, scanned whole in chunks of 1024."""
+    N, P = data_pts.shape[0], model_part.shape[0]
+    return nn_kernel.prepare_match(
+        "nn_argmin", data_pts.contiguous(),
+        data_part.to(torch.int32).contiguous(), N + (-N) % 256, None,
+        model_part.to(torch.int32).contiguous(), P, P + (-P) % 1024, None,
+        None, 256, 1024)
 
 
 def find_nn_stats(data_pts: torch.Tensor, data_part: torch.Tensor,
                   model_cloud: torch.Tensor, model_part: torch.Tensor,
                   visible: torch.Tensor, wild: int = -1000,
-                  wild_gate2=None) -> CorrStats:
+                  wild_gate2=None, match=None) -> CorrStats:
     """Match every valid data point to its nearest visible same-part model
     vertex over the whole model axis; reduce to per-vertex statistics.
 
@@ -212,32 +202,25 @@ def find_nn_stats(data_pts: torch.Tensor, data_part: torch.Tensor,
     padding), model_cloud [P, 3], model_part [P] int32, visible [P] bool.
     The kernel scans 1024-slot chunks, as the reference's Pallas branch
     does.  ``corr`` is in data order.  ``s`` sums the uncentred points, ``q`` the
-    squared norms of the points recentred on the model mean.
+    squared norms of the points recentred on the model mean.  ``match``:
+    ``unplanned_match`` of the same data and model parts, when the caller
+    searches more than once.
     """
-    N = data_pts.shape[0]
     P = model_cloud.shape[0]
     dtype, dev = data_pts.dtype, data_pts.device
+    if match is None:
+        match = unplanned_match(data_pts, data_part, model_part)
     center = torch.mean(model_cloud, dim=0)
-    data_c = data_pts - center
-    args = unplanned_nn_inputs(data_c, data_part, model_cloud - center,
-                               model_part, visible)
-    Pp = args[2].shape[0]
-    best_d, best_i = nn_kernel.nn_argmin(*args, tile_n=256, chunk=1024,
-                                         wild=wild)
-    best_d, best_i = best_d[:N], best_i[:N]
-
-    matched = (best_i >= 0) & (data_part >= 0)
-    if wild_gate2 is not None:
-        matched = matched & ((data_part != wild) | (best_d <= wild_gate2))
-    corr = torch.where(matched, best_i, -1).to(torch.int32)
-    wgt = matched.to(dtype)
-    idx = torch.where(matched, best_i, Pp).long()    # padding bucket
-    cnt = torch.zeros(Pp + 1, dtype=dtype, device=dev).index_add_(
+    _, corr, wgt, n_matched = nn_kernel.nn_match(
+        match, model_cloud, center, visible, wild, wild_gate2)
+    idx = torch.where(corr >= 0, corr, P).long()     # padding bucket
+    cnt = torch.zeros(P + 1, dtype=dtype, device=dev).index_add_(
         0, idx, wgt)[:P]
-    s = torch.zeros((Pp + 1, 3), dtype=dtype, device=dev).index_add_(
+    s = torch.zeros((P + 1, 3), dtype=dtype, device=dev).index_add_(
         0, idx, data_pts * wgt[:, None])[:P]
+    data_c = data_pts - center
     q = torch.sum(torch.sum(data_c * data_c, dim=-1) * wgt)
-    return CorrStats(cnt=cnt, s=s, q=q, n_matched=torch.sum(wgt), corr=corr)
+    return CorrStats(cnt=cnt, s=s, q=q, n_matched=n_matched, corr=corr)
 
 
 def matcher(data_pts: torch.Tensor, data_part: torch.Tensor,
@@ -250,9 +233,12 @@ def matcher(data_pts: torch.Tensor, data_part: torch.Tensor,
     ``match(model_cloud, visible, wild, wild_gate2) -> CorrStats`` with
     ``corr`` aligned with those rows."""
     if data_pts.shape[0] % 256:
+        prepared = unplanned_match(data_pts, data_part, model_part)
+
         def match(x, vis, wild, wild_gate2):
             return find_nn_stats(data_pts, data_part, x, model_part, vis,
-                                 wild=wild, wild_gate2=wild_gate2)
+                                 wild=wild, wild_gate2=wild_gate2,
+                                 match=prepared)
         return data_pts, data_part, match
 
     plan = make_nn_plan(data_pts, data_part, model_part, num_parts=num_parts,

@@ -14,9 +14,15 @@ each (any failure exits non-zero and prints no result):
    14 groups, wildcards and padding): indices equal, d2 within rtol 1e-6,
    ranged (B1, the fit's) and full-range (B2), and B2 at the unplanned
    ``find_nn_stats``'s shape (8192 unsorted rows, 7168 slots with pad part
-   -2, chunk 1024); CUDA-event times, median of 20, beside each launch's
-   bound (the larger of its bytes over HBM bandwidth and its scanned pairs'
-   FP32 operations over the FP32 peak);
+   -2, chunk 1024), beside each launch's bound (the larger of its bytes
+   over HBM bandwidth and its scanned pairs' FP32 operations over the FP32
+   peak).  Three times per case: ``device_ms``, CUDA events around 50
+   launches queued behind a busy device, so the host's enqueue cost is not
+   in it (median of 7 runs; the clouds stay warm in L2, as the fit finds
+   them); ``host_us``, the host clock around 50 wrapper calls with no
+   synchronise: the enqueue cost per call; ``call_ms``, events around one
+   call on an idle device (median of 20), which holds both.  The fused
+   entry (``find_nn_stats_planned``) is timed the same way;
 4. slice — ``FusedTracker.track`` at 1280x720 with the bench's config, the
    3-tree r5 forest and background subtraction, on the 6 frames of
    tests/fixtures/torch_port_720p.npz (one reinit, then steady state).
@@ -74,10 +80,18 @@ each (any failure exits non-zero and prints no result):
    than that from its start.  B2 held against its plain version on every
    launch.
 
+10. profile — ``torch.profiler`` over the planned search of phase 3: the
+   device launches per search and each kernel's own device time (last,
+   because a process that has run the profiler pays more for every
+   launch after it).
+
 The kernel counts are reset before each main path (phases 4, 6, 7, 8 and
-9) and read after it.  Every recorded launch must give indices equal and
-d2 equal to the last bit.  The line before the last is the kernels' JSON
-record; the last line is ``{"ok": true, "device": {...}}``.
+9) and read after it.  The paths search through the fused entry
+(``nn_kernel.nn_match``); every recorded search is run again through the
+fused and the raw entry and must equal the plain version: indices equal
+and d2 equal to the last bit.  The line before the last is the kernels'
+JSON record (``ms`` is ``device_ms``); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 import contextlib
@@ -160,6 +174,8 @@ def phase_build():
 
 
 def _time_ms(fn, reps: int = 20) -> float:
+    """CUDA events around ONE call on an idle device, median of ``reps``:
+    the call's host work and launch latency are inside the interval."""
     import torch
 
     fn()
@@ -174,6 +190,87 @@ def _time_ms(fn, reps: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def _busy(dev, ms: float) -> None:
+    """Queue about ``ms`` of device work, so what is queued next waits on
+    the device and then runs back to back."""
+    import torch
+
+    if hasattr(torch.cuda, "_sleep"):
+        torch.cuda._sleep(int(ms * 2.0e6))      # cycles, at up to 2 GHz
+    else:
+        x = torch.ones((4096, 4096), device=dev)
+        for _ in range(int(ms) + 1):
+            x = (x @ x).clamp_(max=1.0)
+
+
+def _device_ms(fn, dev, n: int = 50, runs: int = 7) -> float:
+    """Device time per call: events around ``n`` calls queued while the
+    device is busy (for twice the time the host took to queue them in the
+    warm-up), over ``n``; median of ``runs``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    hold_ms = (time.perf_counter() - t0) * 2e3 + 1.0
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        _busy(dev, hold_ms)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return float(np.median(times))
+
+
+def _host_us(fn, n: int = 50, runs: int = 7) -> float:
+    """Host time per call: the host clock around ``n`` calls on an empty
+    queue, with no synchronise inside, over ``n``; median of ``runs``."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def _profiled(fn, n: int = 20):
+    """``torch.profiler``'s view of ``n`` calls: {kernel name: (launches
+    per call, device us per launch)}, empty where the profiler records no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        total = getattr(ev, "device_time_total",
+                        getattr(ev, "cuda_time_total", 0))
+        on_device = "cuda" in str(getattr(ev, "device_type", "")).lower()
+        if on_device and total > 0:
+            out[ev.key] = (ev.count / n, total / ev.count)
+    return out
 
 
 def _compare(name, got, ref, n_rows):
@@ -194,6 +291,8 @@ def _compare(name, got, ref, n_rows):
 
 
 def phase_kernel(dev):
+    import torch
+
     from avatar_tpu_torch.optim import correspond, nn_kernel
     from avatar_tpu_torch.perception.partgroups import SMPL24_NUM_GROUPS
     from avatar_tpu_torch.testing import (synthetic_nn_inputs,
@@ -212,11 +311,11 @@ def phase_kernel(dev):
     # B2 as find_nn_stats launches it: unsorted, 7168 slots, chunk 1024
     data, dpart, verts, part, visible = synthetic_nn_stats_inputs(
         8192, device=dev)
-    c = verts.mean(0)
+    center = verts.mean(0)
+    unplanned = correspond.unplanned_match(data, dpart, part)
     cases.append(("nn_argmin", "8192 unplanned",
-                  correspond.unplanned_nn_inputs(data - c, dpart, verts - c,
-                                                 part, visible),
-                  dict(chunk=1024)))
+                  nn_kernel.match_inputs(unplanned, verts, center,
+                                         visible)[:5], dict(chunk=1024)))
     for name, n_rows, a, kw in cases:
         kw = dict(kw, wild=wild)
         fn = getattr(nn_kernel, name)
@@ -224,23 +323,62 @@ def phase_kernel(dev):
         got = fn(*a, **kw)
         ref = ref_fn(*a, **kw)
         max_abs, rel = _compare(name, got, ref, n_rows)
-        ms = _time_ms(lambda: fn(*a, **kw))
+        device_ms = _device_ms(lambda: fn(*a, **kw), dev)
+        host_us = _host_us(lambda: fn(*a, **kw))
+        call_ms = _time_ms(lambda: fn(*a, **kw))
         plain_ms = _time_ms(lambda: ref_fn(*a, **kw))
-        ranged = list(a) + ([] if name == "nn_argmin_ranges" else list(
-            nn_kernel._full_range(a[0].shape[0], a[2].shape[0], 256,
-                                  kw["chunk"], dev)))
+        ranged = list(a) + [None, None][:7 - len(a)]
         bound_ms, bound_by = _bound(ranged, kw)
         matched = int((got[1] >= 0).sum())
         print(f"[kernel] {name} N={n_rows} Pp={a[2].shape[0]} chunk="
               f"{kw['chunk']}: indices equal ({matched} matched), d2 max abs "
-              f"err {max_abs:.3g}, max rel {rel:.3g}; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms (CUDA events, median of 20); bound "
-              f"{bound_ms * 1e3:.3f} us by {bound_by} "
+              f"err {max_abs:.3g}, max rel {rel:.3g}; device_ms "
+              f"{device_ms:.5f} (events around 50 queued launches, median "
+              f"of 7), host_us {host_us:.2f} per call, call_ms {call_ms:.4f}"
+              f" and plain {plain_ms:.4f} ms (events around one call, median"
+              f" of 20); bound {bound_ms * 1e3:.3f} us by {bound_by} "
               f"({_pairs(ranged, kw)} scanned pairs)", flush=True)
-        rec[(name, n_rows)] = dict(max_abs_err=max_abs, ms=ms,
-                                   plain_ms=plain_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by)
-    return rec
+        rec[(name, n_rows)] = dict(max_abs_err=max_abs, ms=device_ms,
+                                   device_ms=device_ms, host_us=host_us,
+                                   call_ms=call_ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by)
+
+    # the fused entry as the fit calls it: one planned search, model mean
+    # included, over the unsorted model (mperm) with the wildcard gate
+    plan = correspond.make_nn_plan(data, dpart, part, num_parts=wild)
+    gate2 = torch.tensor(0.04, device=dev)
+    search = lambda: correspond.find_nn_stats_planned(
+        plan, verts, visible, wild=wild, wild_gate2=gate2)
+    st = search()
+    ref = nn_kernel.nn_match_ref(plan.match, verts, center, visible, wild,
+                                 gate2)
+    torch.cuda.synchronize()
+    if not torch.equal(st.corr, ref[1]) or \
+            float(st.n_matched) != float(ref[3]):
+        fail("[kernel] find_nn_stats_planned differs from its plain version")
+    device_ms, host_us = _device_ms(search, dev), _host_us(search)
+    call_ms = _time_ms(search)
+    print(f"[kernel] find_nn_stats_planned N=8192 (one host call into the "
+          f"kernel): corr and n_matched ({int(st.n_matched)}) equal to the "
+          f"plain version; device_ms {device_ms:.5f}, host_us {host_us:.2f},"
+          f" call_ms {call_ms:.4f}", flush=True)
+    return rec, search
+
+
+def phase_profile(search):
+    """``torch.profiler``'s count and device time of the kernels of one
+    planned search.  Last of all phases: once the profiler has run in a
+    process, every later launch costs the host more."""
+    prof = _profiled(search)
+    if not prof:
+        print("[profile] torch.profiler recorded no device time here",
+              flush=True)
+        return
+    print(f"[profile] find_nn_stats_planned N=8192: "
+          f"{sum(c for c, _ in prof.values()):g} device launches per search;"
+          " device us per launch: " + ", ".join(
+              f"{k[:60]} x{c:g} {us:.2f}" for k, (c, us) in prof.items()),
+          flush=True)
 
 
 def _reset_counts() -> None:
@@ -251,35 +389,34 @@ def _reset_counts() -> None:
 
 @contextlib.contextmanager
 def _recording(calls: list, name: str = "nn_argmin_ranges"):
-    """Append a copy of the inputs of every call of the wrapper ``name``
-    made inside the block to ``calls``: the tensors a path hands the
-    kernel, in the ranged form (B2's full range written out)."""
+    """Append the arguments (tensors that change copied) of every search
+    the block makes through ``nn_kernel.nn_match`` under the kernel
+    ``name`` to ``calls``."""
     from avatar_tpu_torch.optim import nn_kernel
 
-    real = getattr(nn_kernel, name)
+    real = nn_kernel.nn_match
 
-    def record(*args, **kw):
-        copy = [a.clone() if hasattr(a, "clone") else a for a in args]
-        kw = {k: v for k, v in kw.items() if k != "_name"}
-        if name == "nn_argmin":
-            kw.setdefault("chunk", 1024)
-            copy += list(nn_kernel._full_range(
-                args[0].shape[0], args[2].shape[0], kw.get("tile_n", 256),
-                kw["chunk"], args[0].device))
-        calls.append((copy, kw))
-        return real(*args, **kw)
+    def record(m, model_cloud, center, visible, wild=-1000, wild_gate2=None):
+        if m.name == name:
+            gate = wild_gate2.clone() if hasattr(wild_gate2, "clone") \
+                else wild_gate2
+            calls.append((m, model_cloud.clone(), center.clone(),
+                          visible.clone(), wild, gate))
+        return real(m, model_cloud, center, visible, wild, wild_gate2)
 
-    setattr(nn_kernel, name, record)
+    nn_kernel.nn_match = record
     try:
         yield
     finally:
-        setattr(nn_kernel, name, real)
+        nn_kernel.nn_match = real
 
 
 def _pairs(args, kw) -> int:
     """Scanned (row, model slot) pairs of one ranged launch: the rows of
-    each tile times the columns of its chunk range."""
+    each tile times the columns of its chunk range (no range: all)."""
     tile_n, chunk = kw.get("tile_n", 256), kw.get("chunk", 512)
+    if args[5] is None:
+        return args[0].shape[0] * args[2].shape[0]
     cs, ce = args[5].long(), args[6].long()
     return int(((ce - cs).clamp(min=0) * chunk).sum()) * tile_n
 
@@ -289,39 +426,73 @@ def _bound(args, kw):
     what bounds it: each input read once and each output written once
     over HBM bandwidth, against the scanned pairs' FP32 operations over
     the FP32 peak."""
-    n_bytes = sum(a.numel() * a.element_size() for a in args) + \
-        args[0].shape[0] * 8
+    n_bytes = sum(a.numel() * a.element_size() for a in args
+                  if a is not None) + args[0].shape[0] * 8
+    if args[5] is None:     # the full range written out, as it was counted
+        n_bytes += 2 * 4 * (args[0].shape[0] // kw.get("tile_n", 256))
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = _pairs(args, kw) * OPS_PER_PAIR / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
 
 
-def _hold_recorded(tag: str, calls: list) -> float:
-    """The kernel against its plain version on every recorded input:
-    indices equal and d2 equal to the last bit.  Returns the largest d2
-    abs error (0)."""
+def _hold_recorded(tag: str, calls: list, dev=None) -> float:
+    """Every recorded search again, through the fused and the raw entry,
+    against the plain version: indices equal and d2 equal to the last bit.
+    Returns the largest d2 abs error (0).  With ``dev``, also the spread of
+    scanned pairs over the 64-row groups of the launches, and the kernel's
+    times on the last recorded search."""
+    import torch
+
     from avatar_tpu_torch.optim import nn_kernel
 
     if not calls:
         fail(f"[{tag}] no kernel call recorded")
-    worst, shapes, pairs, bound = 0.0, set(), 0, 0.0
-    for args, kw in calls:
+    worst, shapes, pairs, bound, per_group = 0.0, set(), 0, 0.0, []
+    for m, cloud, center, visible, wild, gate in calls:
+        args = nn_kernel.match_inputs(m, cloud, center, visible)
+        kw = dict(tile_n=m.tile_n, chunk=m.chunk, wild=wild)
         n = args[0].shape[0]
-        got = nn_kernel.nn_argmin_ranges(*args, **kw)
         ref = nn_kernel.nn_argmin_ranges_ref(*args, **kw)
+        got = nn_kernel.nn_argmin_ranges(*args, **kw)
         worst = max(worst, _compare(f"[{tag}] recorded", got, ref, n)[0])
-        shapes.add((n, args[2].shape[0], kw.get("chunk", 512),
-                    kw.get("wild")))
+        fused = nn_kernel.nn_match(m, cloud, center, visible, wild, gate)
+        plain = nn_kernel.nn_match_ref(m, cloud, center, visible, wild, gate,
+                                       argmin=lambda *a, **k: ref)
+        torch.cuda.synchronize()
+        for what, x, y in zip(("d2", "corr", "wgt", "n_matched"), fused,
+                              plain):
+            if not torch.equal(x, y):
+                fail(f"[{tag}] recorded search: the fused entry's {what} "
+                     "differs from the plain version")
+        shapes.add((n, args[2].shape[0], m.chunk, wild))
         pairs += _pairs(args, kw)
         bound += _bound(args, kw)[0]
+        if m.cstart is not None:
+            per_group.append((n, ((m.cend - m.cstart).clamp(min=0).long()
+                                  * m.chunk * 64).repeat_interleave(
+                                      m.tile_n // 64).tolist()))
     if worst != 0.0:
         fail(f"[{tag}] recorded launches: d2 max abs err {worst:.3g}, not 0")
-    print(f"[{tag}] kernel vs plain on the inputs of its {len(calls)} "
-          f"launches (N, Pp, chunk, wild: {sorted(shapes)}): indices equal, "
-          f"d2 max abs err {worst:.3g}; {pairs / len(calls):.0f} scanned "
-          f"pairs per launch, bound {bound / len(calls) * 1e3:.3f} us per "
-          "launch", flush=True)
+    print(f"[{tag}] fused and raw entry vs plain on the inputs of its "
+          f"{len(calls)} searches (N, Pp, chunk, wild: {sorted(shapes)}): "
+          f"indices equal, d2 max abs err {worst:.3g}; "
+          f"{pairs / len(calls):.0f} scanned pairs per launch, bound "
+          f"{bound / len(calls) * 1e3:.3f} us per launch", flush=True)
+    if dev is not None:
+        # the imbalance a row-per-block design meets: the last search's N
+        spread = sum((g for rows, g in per_group if rows == n), [])
+        if spread:
+            print(f"[{tag}] scanned pairs per 64-row group over the N={n} "
+                  f"launches: min {min(spread)}, median "
+                  f"{int(np.median(spread))}, max {max(spread)} (mean "
+                  f"{np.mean(spread):.0f})", flush=True)
+        run = lambda: nn_kernel.nn_match(m, cloud, center, visible, wild,
+                                         gate)
+        print(f"[{tag}] last recorded search (N={n}, "
+              f"{_pairs(args, kw)} pairs): device_ms "
+              f"{_device_ms(run, dev):.5f}, host_us {_host_us(run):.2f}, "
+              f"call_ms {_time_ms(run):.4f}", flush=True)
     return worst
 
 
@@ -456,7 +627,7 @@ def _track_path(scene, tag, ref_fixture, steady_mm=REF_MM, **cfg_kw):
         if e_gt > e_ref + GT_SLACK_MM:
             fail(f"[{tag}] synced frame {i}: GT error {e_gt:.2f} mm > "
                  f"reference {e_ref:.2f} + {GT_SLACK_MM} mm")
-    max_err = _hold_recorded(tag, calls)
+    max_err = _hold_recorded(tag, calls, scene.dev)
     steady = float(np.median([r[1] for r in runs[2:]]))
     print(f"[{tag}] {len(runs)} frames ok, kernel launches {launches}, "
           f"synced worst joint distance to reference {worst:.3f} mm, "
@@ -603,7 +774,7 @@ def phase_probe(scene):
         fail(f"[probe] fit_rmse_mm {rmse:.3f} vs reference {ref_rmse:.3f}")
     if launches["nn_argmin_ranges"] <= 0:
         fail("[probe] fit_refine never launched the nn_argmin_ranges kernel")
-    return launches, step_ms, _hold_recorded("probe", calls)
+    return launches, step_ms, _hold_recorded("probe", calls, dev)
 
 
 def phase_accuracy(scene):
@@ -770,7 +941,7 @@ def phase_host(scene):
         fail(f"[host] 8-step reinit fit {d8:.2f} mm from the reference")
     if control <= bound:
         fail("[host] the unfitted pose meets the free-running bound")
-    max_err = _hold_recorded("host", calls)
+    max_err = _hold_recorded("host", calls, scene.dev)
     steady = float(np.median([r[1] for r in runs[2:]]))
     print(f"[host] {len(runs)} frames ok, kernel launches {launches}, "
           f"synced steady frames within {worst:.3f} mm of the reference, "
@@ -876,7 +1047,7 @@ def main():
     # reproducible runs: the scatter-adds take their deterministic kernels
     torch.use_deterministic_algorithms(True)
     phase_build()
-    rec = phase_kernel(dev)
+    rec, search = phase_kernel(dev)
     scene = Scene(dev)
     paths = {"slice": phase_slice(scene)}
     phase_render(scene)
@@ -888,6 +1059,7 @@ def main():
     # every recorded launch of each path was held against the plain
     # version, to the last bit
     path_err = max(out[-1] for out in paths.values())
+    phase_profile(search)
 
     kernels = []
     for name, replaces, key in (
@@ -906,7 +1078,9 @@ def main():
             "source": "avatar_tpu_torch/csrc/nn_argmin.cu",
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": err,
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "device_ms": r["device_ms"],
+            "host_us": r["host_us"], "call_ms": r["call_ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "n_rows": 8192,
             "model_slots": 6656 if name == "nn_argmin_ranges" else 7168})

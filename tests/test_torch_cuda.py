@@ -1,7 +1,8 @@
 """On the card: the hand-written CUDA kernel against its plain PyTorch
 version (B1 at the fit's planned shapes, B2 at the unplanned
-``find_nn_stats``'s), and the renderer and ``find_nn_stats`` against the
-same functions on the CPU.  Imports
+``find_nn_stats``'s, the fused search, and cases built against the merge of
+the kernel's work units), and the renderer and ``find_nn_stats`` against
+the same functions on the CPU.  Imports
 no JAX (the card's machine has none); on a machine without a CUDA device
 every test skips.  On the card:
 
@@ -128,9 +129,9 @@ def test_b2_at_find_nn_stats_shapes(cuda):
     Indices equal to the plain version's, d2 equal to the last bit."""
     data, dpart, verts, part, visible = synthetic_nn_stats_inputs(
         8192, device=cuda)
-    c = verts.mean(0)
-    args = correspond.unplanned_nn_inputs(data - c, dpart, verts - c, part,
-                                          visible)
+    args = nn_kernel.match_inputs(
+        correspond.unplanned_match(data, dpart, part), verts, verts.mean(0),
+        visible)[:5]
     assert args[2].shape[0] == 7168 and (args[3][6624:] == -2).all()
     before = nn_kernel.LAUNCHES["nn_argmin"]
     d, i = nn_kernel.nn_argmin(*args, wild=SMPL24_NUM_GROUPS)
@@ -160,3 +161,140 @@ def test_find_nn_stats_on_card_matches_cpu(cuda, n_rows):
     assert torch.equal(got.cnt.cpu(), ref.cnt)
     torch.testing.assert_close(got.s.cpu(), ref.s, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(got.q.cpu(), ref.q, rtol=1e-6, atol=0.0)
+
+
+# -- cases against the merge of the kernel's work units ----------------------
+# A work unit is 64 data rows by up to 512 slots of one model chunk; units
+# of one row merge through an atomic minimum of (d2, index).  Every case
+# holds the kernel to the plain version: indices equal, d2 to the last bit.
+
+def _equal_to_plain(args, **kw):
+    d, i = nn_kernel.nn_argmin_ranges(*args, **kw)
+    torch.cuda.synchronize()
+    rd, ri = nn_kernel.nn_argmin_ranges_ref(*args, **kw)
+    assert torch.equal(i, ri), int((i != ri).sum())
+    assert torch.equal(d, rd)
+    return d, i
+
+
+def _one_part_case(cuda, N, Pp, chunk, dup_slots, seed=0):
+    """N rows near model vertex ``dup_slots[0]``, whose point every slot
+    of ``dup_slots`` repeats; one part, all visible, full range."""
+    g = torch.Generator().manual_seed(seed)
+    model = torch.randn(Pp, 3, generator=g)
+    model[dup_slots] = model[dup_slots[0]].clone()
+    data = model[dup_slots[0]] + 1e-3 * torch.randn(N, 3, generator=g)
+    t = lambda a: a.to(cuda)
+    T = N // 256
+    return [t(data), t(torch.zeros(N, dtype=torch.int32)), t(model),
+            t(torch.zeros(Pp, dtype=torch.int32)),
+            t(torch.ones(Pp, dtype=torch.bool)),
+            t(torch.zeros(T, dtype=torch.int32)),
+            t(torch.full((T,), Pp // chunk, dtype=torch.int32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [512, 1024, 3072])
+def test_duplicates_across_chunk_and_unit_boundaries(cuda, chunk):
+    """The same point on both sides of a 512-slot unit boundary and of a
+    chunk boundary: the lowest index wins, and when it turns invisible the
+    next one does, whichever unit scanned it."""
+    Pp = 6144
+    dups = [509, 511, 512, 1023, 1024, 3071, 3072, 3073, 6143]
+    args = _one_part_case(cuda, 256, Pp, chunk, dups)
+    for k, want in enumerate(dups):
+        d, i = _equal_to_plain(args, chunk=chunk)
+        assert (i == want).all(), (want, i.unique())
+        args[4][want] = False
+
+
+@pytest.mark.cuda
+def test_rows_without_candidate_and_empty_ranges(cuda):
+    """Rows with no candidate give (3e38, -1): a part no slot carries,
+    padding rows, a tile with ``cstart == cend``, an all-padding tile, and
+    a launch where no tile has any unit."""
+    args = list(synthetic_nn_inputs(1024, n_wild=100, seed=3, device=cuda))
+    args[1] = args[1].clone()
+    real = (args[1] >= 0).nonzero()[:, 0]
+    args[1][real[:5]] = 77                  # a part of no model slot
+    d, i = _equal_to_plain(args, wild=SMPL24_NUM_GROUPS)
+    assert (i[real[:5]] == -1).all() and (d[real[:5]] == 3.0e38).all()
+    assert (i[args[1] < 0] == -1).all() and (args[1] < 0).sum() > 256
+    args[5], args[6] = args[5].clone(), args[6].clone()
+    args[6][-1] = args[5][-1]               # cstart == cend on a real tile
+    d, i = _equal_to_plain(args, wild=SMPL24_NUM_GROUPS)
+    assert (i[-256:] == -1).all()
+    args[6][:] = args[5]                    # no unit at all
+    d, i = _equal_to_plain(args, wild=SMPL24_NUM_GROUPS)
+    assert (i == -1).all() and (d == 3.0e38).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [256, 1024])
+def test_small_and_all_wildcard_launches(cuda, n_rows):
+    """N = 256 (one tile), and every row a wildcard: each scans the whole
+    real model axis."""
+    args = list(synthetic_nn_inputs(n_rows, n_wild=n_rows // 2, seed=n_rows,
+                                    device=cuda))
+    _equal_to_plain(args, wild=SMPL24_NUM_GROUPS)
+    args[1] = torch.full_like(args[1], SMPL24_NUM_GROUPS)
+    args[5] = torch.zeros_like(args[5])
+    args[6] = torch.full_like(args[6], 13)
+    d, i = _equal_to_plain(args, wild=SMPL24_NUM_GROUPS)
+    assert (i >= 0).all()
+
+
+@pytest.mark.cuda
+def test_full_range_without_range_tensors(cuda):
+    """``nn_argmin`` hands the kernel no cstart/cend: the same result as
+    the full range written out."""
+    args = synthetic_nn_inputs(2048, seed=9, device=cuda)
+    full = nn_kernel._full_range(2048, 6656, 256, 512, cuda)
+    d, i = nn_kernel.nn_argmin(*args[:5], chunk=512, wild=SMPL24_NUM_GROUPS)
+    d2, i2 = _equal_to_plain(list(args[:5]) + list(full), chunk=512,
+                             wild=SMPL24_NUM_GROUPS)
+    assert torch.equal(i, i2) and torch.equal(d, d2)
+
+
+@pytest.mark.cuda
+def test_second_launch_sees_no_stale_key(cuda):
+    """Two launches in a row share the scratch: the second, with every
+    slot invisible, must not find the first one's keys."""
+    args = list(synthetic_nn_inputs(1024, seed=4, device=cuda))
+    d, i = _equal_to_plain(args, wild=SMPL24_NUM_GROUPS)
+    assert (i >= 0).any()
+    del d, i
+    args[4] = torch.zeros_like(args[4])
+    d, i = _equal_to_plain(args, wild=SMPL24_NUM_GROUPS)
+    assert (i == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_sorted,gate", [(False, 2e-5), (True, None)])
+def test_fused_search_matches_plain(cuda, model_sorted, gate):
+    """``nn_match`` (one host call) against its plain version on a planned
+    search: best_d, corr, wgt and n_matched equal, with and without the
+    model permutation and the wildcard gate (as a device scalar)."""
+    data, dpart, verts, part, visible = synthetic_nn_stats_inputs(
+        2048, seed=11, device=cuda)
+    if model_sorted:
+        order = torch.argsort(part, stable=True)
+        verts, part, visible = verts[order], part[order], visible[order]
+    plan = correspond.make_nn_plan(data, dpart, part,
+                                   num_parts=SMPL24_NUM_GROUPS,
+                                   model_sorted=model_sorted)
+    gate = None if gate is None else torch.tensor(gate, device=cuda)
+    center = verts.mean(0)
+    before = nn_kernel.LAUNCHES["nn_argmin_ranges"]
+    got = nn_kernel.nn_match(plan.match, verts, center, visible,
+                             SMPL24_NUM_GROUPS, gate)
+    torch.cuda.synchronize()
+    assert nn_kernel.LAUNCHES["nn_argmin_ranges"] == before + 1
+    ref = nn_kernel.nn_match_ref(plan.match, verts, center, visible,
+                                 SMPL24_NUM_GROUPS, gate)
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+    assert float(got[3]) > 400 and (got[1] >= 0).sum() == int(got[3])
+    if gate is not None:
+        wild_rows = plan.dpart == SMPL24_NUM_GROUPS
+        assert (got[1][wild_rows] == -1).any(), "the gate bites"

@@ -279,3 +279,102 @@ def test_backface_visibility_matches_reference():
                                     torch.as_tensor(faces))
     np.testing.assert_array_equal(got.numpy(), ref)
     assert 0 < ref.sum() < 400
+
+
+def test_merge_key_orders_like_the_kernel():
+    """The 64-bit key the kernel's work units merge through: the smaller
+    d2 first, then the smaller index; d2 = 0 below everything; (3e38, -1),
+    no candidate, above every candidate; and the round trip is exact."""
+    d2 = torch.tensor([0.0, 0.0, 1e-30, 2.5, 2.5, 2.5000002, 2.9e38, 3.0e38],
+                      dtype=torch.float32)
+    idx = torch.tensor([0, 7, 3, 2 ** 31 - 1, 5, 0, 6655, -1],
+                       dtype=torch.int32)
+    key = nn_kernel.pack_key(d2, idx)
+    assert int(key[-1]) == nn_kernel.NO_KEY and (key >= 0).all()
+    want = sorted(range(8), key=lambda k: (float(d2[k]), int(idx[k]) % 2 ** 32))
+    assert torch.argsort(key).tolist() == want == [0, 1, 2, 4, 3, 5, 6, 7]
+    rd, ri = nn_kernel.unpack_key(key)
+    assert torch.equal(rd, d2) and torch.equal(ri, idx)
+    assert rd.dtype == torch.float32 and ri.dtype == torch.int32
+
+
+@pytest.mark.parametrize("seed,chunk,unit", [(0, 512, 512), (1, 256, 128)])
+def test_units_merged_through_the_key_equal_the_whole_scan(seed, chunk, unit):
+    """The kernel's decomposition on the plain version: every (tile,
+    ``unit`` slots of one chunk) scanned alone, merged per row with a
+    minimum of the packed key, gives the whole scan's (d2, index) to the
+    bit, in any order of the units."""
+    inputs = [torch.as_tensor(np.array(a)) for a in
+              _planned_inputs(*_clouds(seed), 256, chunk)]
+    dpts, dpart, xs, mpart, vis, cstart, cend = inputs
+    want_d, want_i = nn_kernel.nn_argmin_ranges_ref(*inputs, chunk=chunk,
+                                                    wild=WILD)
+    N, Pp = dpts.shape[0], xs.shape[0]
+    key = torch.full((N,), nn_kernel.NO_KEY, dtype=torch.int64)
+    n_units = Pp // unit
+    for u in np.random.default_rng(seed).permutation(n_units):
+        chunk_of = torch.full_like(cstart, int(u * unit // chunk))
+        lo = torch.maximum(cstart, chunk_of)
+        hi = torch.minimum(cend, chunk_of + 1)
+        # only the unit's slots are visible to this scan
+        here = torch.zeros_like(vis)
+        here[u * unit:(u + 1) * unit] = True
+        d, i = nn_kernel.nn_argmin_ranges_ref(
+            dpts, dpart, xs, mpart, vis & here, lo, hi, chunk=chunk,
+            wild=WILD)
+        key = torch.minimum(key, nn_kernel.pack_key(d, i))
+    got_d, got_i = nn_kernel.unpack_key(key)
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+    assert (want_i >= 0).any() and (want_i == -1).any()
+
+
+@pytest.mark.parametrize("N,model_sorted,gate2", [
+    (512, False, 0.5), (1024, False, None), (512, True, None),
+    (1024, True, 0.5)])
+def test_fused_search_plain_version_matches_reference(N, model_sorted, gate2):
+    """``nn_match``'s plain version (what the fused CUDA entry is held to on
+    the card) against the reference's ``find_nn_stats_planned`` with its
+    Pallas kernel in interpret mode: corr and n_matched equal, with and
+    without the model permutation, with wildcards and the wildcard gate;
+    best_d within rtol 1e-6 of the Pallas kernel's on the same inputs."""
+    data, dpart, model, mpart, visible = _clouds(
+        N, N=N, n_data=N - 100, n_wild=60)
+    if model_sorted:
+        order = np.argsort(mpart, kind="stable")
+        model, mpart, visible = model[order], mpart[order], visible[order]
+    jplan = jcorr.make_nn_plan(jnp.asarray(data), jnp.asarray(dpart),
+                               jnp.asarray(mpart), num_parts=NUM_PARTS,
+                               model_sorted=model_sorted)
+    tplan = tcorr.make_nn_plan(torch.as_tensor(data), torch.as_tensor(dpart),
+                               torch.as_tensor(mpart), num_parts=NUM_PARTS,
+                               model_sorted=model_sorted)
+    assert (tplan.match.mperm is None) == model_sorted
+    ref = jcorr.find_nn_stats_planned(
+        jplan, jnp.asarray(model), jnp.asarray(visible), interpret=True,
+        wild=WILD, wild_gate2=None if gate2 is None else jnp.float32(gate2))
+    tmodel, tvis = torch.as_tensor(model), torch.as_tensor(visible)
+    center = torch.mean(tmodel, dim=0)
+    gate = None if gate2 is None else torch.tensor(gate2)
+    best_d, corr, wgt, n_matched = nn_kernel.nn_match(
+        tplan.match, tmodel, center, tvis, WILD, gate)
+    np.testing.assert_array_equal(corr.numpy(), np.asarray(ref.corr))
+    assert float(n_matched) == float(ref.n_matched) == float(wgt.sum())
+    assert corr.dtype == torch.int32 and (corr >= 0).sum() == int(n_matched)
+    wild_rows = tplan.dpart.numpy() == WILD
+    assert (corr.numpy()[wild_rows] >= 0).any(), "wildcards match"
+    if gate2 is not None:
+        assert (corr.numpy()[wild_rows] == -1).any(), "the gate bites"
+    # the entry point built on it gives the same
+    st = tcorr.find_nn_stats_planned(tplan, tmodel, tvis, wild=WILD,
+                                     wild_gate2=gate)
+    assert torch.equal(st.corr, corr) and float(st.n_matched) == \
+        float(n_matched)
+    # distances: the Pallas kernel on the inputs the plain version built
+    args = nn_kernel.match_inputs(tplan.match, tmodel, center, tvis)
+    pd, pi = nn_pallas.nn_argmin_ranges(
+        *[jnp.asarray(a.numpy()) for a in args], tile_n=256, chunk=512,
+        interpret=True, wild=WILD)
+    ok = np.asarray(pi) >= 0
+    np.testing.assert_allclose(best_d.numpy()[ok], np.asarray(pd)[ok],
+                               rtol=1e-6)
+    np.testing.assert_array_equal(best_d.numpy()[~ok], np.asarray(pd)[~ok])
