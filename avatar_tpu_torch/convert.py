@@ -2,8 +2,9 @@
 
 ``from_reference`` turns the reference's containers — ``LBSParams``,
 ``PriorData``, ``FitContext``, ``TreeTensors``, ``Theta``,
-``RasterOutput`` — into the port's containers of the same name, field for
-field, through numpy (``np.array``: a copy, with the dtype kept), and a
+``RasterOutput``, ``SynthSource`` — into the port's containers of the same
+name, field for field, through numpy (``np.array``: a copy, with the dtype
+kept), a ``ForestData`` into the port's (numpy copies), and a
 reference ``Avatar``'s state (``w``, ``p``, ``r``) into a port ``Avatar``
 of a given model, and the state of a reference ``Tracker`` or
 ``AvatarOptimizer`` into the port's.  It needs no JAX: any object whose
@@ -19,13 +20,15 @@ import torch
 from avatar_tpu_torch.core.lbs import LBSParams
 from avatar_tpu_torch.core.model import Avatar, AvatarModel
 from avatar_tpu_torch.device import get_device
+from avatar_tpu_torch.io.formats import ForestData
 from avatar_tpu_torch.optim.gauss_newton import FitContext, PriorData, Theta
 from avatar_tpu_torch.perception.rtree import TreeTensors
 from avatar_tpu_torch.render.raster import RasterOutput
+from avatar_tpu_torch.train.synth import SynthSource
 
 _TYPES = {cls.__name__: cls for cls in
           (LBSParams, PriorData, FitContext, TreeTensors, Theta,
-           RasterOutput)}
+           RasterOutput, SynthSource)}
 
 
 # the host objects' state carried by ``into=``: the avatar's pose and
@@ -72,6 +75,10 @@ def from_reference(obj, device: str | torch.device = "cuda",
             setattr(into, attr, np.array(v) if isinstance(v, np.ndarray)
                     else v)
         return into
+    if name == "ForestData":
+        return ForestData(*(np.array(getattr(obj, f)) for f in (
+            "u", "v", "thresh", "lnode", "rnode", "leafid", "leaf_data")),
+            int(obj.num_parts))
     device = get_device(device)
     cls = _TYPES.get(name)
     if cls is not None:

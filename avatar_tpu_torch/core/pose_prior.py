@@ -47,6 +47,7 @@ class GaussianMixture:
         t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
         self.weights = t(weights)
         self.means = t(means)
+        self.cov_cho = t(cov_cho)
         self.prec_cho = t(prec_cho)
         self.consts_log = t(consts_log)
         self.consts = torch.exp(self.consts_log)
@@ -96,3 +97,17 @@ class GaussianMixture:
         best = torch.gather(wh, -2, idx)[..., 0, :]
         const_term = torch.sqrt(-self.consts_log[comp])
         return torch.cat([best, const_term[..., None]], dim=-1), comp
+
+    def sample(self, generator: torch.Generator, shape=()) -> torch.Tensor:
+        """Draw from the mixture: [..., D].  A component by weight, then
+        ``means[c] + cov_cho[c] @ z`` with z ~ N(0, I).  ``generator``
+        lives on the mixture's device."""
+        shape = tuple(shape)
+        n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        comp = torch.multinomial(self.weights / self.weights.sum(), n,
+                                 replacement=True, generator=generator)
+        z = torch.randn((n, self.n_dims), dtype=self.means.dtype,
+                        device=self.means.device, generator=generator)
+        x = self.means[comp] + torch.einsum("ndk,nk->nd", self.cov_cho[comp],
+                                            z)
+        return x.reshape(shape + (self.n_dims,))

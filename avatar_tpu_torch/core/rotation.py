@@ -131,3 +131,11 @@ def so3_left_jacobian_inv(v: torch.Tensor) -> torch.Tensor:
         2.0 * theta * torch.sin(theta) + _EPS)
     c = torch.where(use_taylor, 1.0 / 12.0 + theta2 / 720.0, c_generic)
     return _eye_like(K) - 0.5 * K + c * K2
+
+
+def from_spherical(rho, theta: torch.Tensor, phi: torch.Tensor
+                   ) -> torch.Tensor:
+    """Spherical -> rectangular [..., 3] (reference AvatarHelpers.cpp:55-59)."""
+    return torch.stack([rho * torch.sin(phi) * torch.cos(theta),
+                        rho * torch.cos(phi),
+                        rho * torch.sin(phi) * torch.sin(theta)], dim=-1)

@@ -5,9 +5,8 @@ The CMU ``cmu-mocap.dat`` binary holds frames of ``frame_size`` float64s:
 the root position, then one quaternion per joint in Eigen coeffs order
 (x, y, z, w); ``.txt`` beside it holds the subsequence table.
 ``pose_avatar`` writes a frame into an ``Avatar``, converting the
-quaternions in float32 as the reference does.  The reference's
-``frames_as_arrays`` (the bank on the device, for forest training) waits
-for the trainer's port.
+quaternions in float32 as the reference does; ``frames_as_arrays`` puts
+the whole bank on a device for the forest trainer's frame generator.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ import numpy as np
 import torch
 
 from avatar_tpu_torch.core import rotation
+from avatar_tpu_torch.device import get_device
 from avatar_tpu_torch.utils import resolve_root_path
 
 
@@ -65,6 +65,20 @@ class AvatarPoseSequence:
             quats, dtype=torch.float32)).numpy()
 
     poseAvatar = pose_avatar
+
+    def frames_as_arrays(self, dtype=torch.float32,
+                         device: str | torch.device = "cuda"):
+        """The whole bank as (pos [F,3], rots [F,J,3,3]) tensors on
+        ``device``, for batched pose sampling."""
+        if self._data is None:
+            self.preload()
+        device = get_device(device)
+        pos = torch.as_tensor(self._data[:, :3], dtype=dtype, device=device)
+        n_joints = (self.frame_size - 3) // 4
+        quats = self._data[:, 3:3 + n_joints * 4].reshape(-1, n_joints, 4)
+        rots = rotation.quat_to_mat(torch.as_tensor(
+            quats.copy(), dtype=dtype, device=device))
+        return pos, rots
 
     @staticmethod
     def write(path: str, positions: np.ndarray, quats: np.ndarray,

@@ -1,6 +1,6 @@
 """Random-forest body-part segmentation (counterpart of
 ``avatar_tpu/perception/rtree.py``: the walk, the blob filters and the
-``RTree`` inference API; training waits for the forest trainer's port).
+``RTree`` API; the training entry points live in ``train/forest.py``).
 
 The walk evaluates the Shotton depth-probe feature
     f = depth(pix + u / d(pix)) - depth(pix + v / d(pix))
@@ -233,8 +233,9 @@ def suppress_part_nonmax(strided: torch.Tensor, com_pre: torch.Tensor,
 
 class RTree:
     """Forest API mirroring the reference class (RTree.h:13-183): loading,
-    ``predict_best``, ``predict`` and ``post_process`` on ``device``.
-    Training raises until the forest trainer is ported (ROADMAP A5)."""
+    ``predict_best``, ``predict`` and ``post_process`` on ``device``,
+    training and export.  Reading the reference's RTREE_V2/V3 trainer
+    state (``load_trainer_checkpoint``) is not ported."""
 
     def __init__(self, path_or_parts, device: str | torch.device = "cuda"):
         self.device = get_device(device)
@@ -255,6 +256,12 @@ class RTree:
         if os.path.exists(pm_path):
             self.part_map, _, self.partmap_type = formats.read_partmap(pm_path)
         return True
+
+    def export_file(self, path: str) -> bool:
+        formats.write_srtr(path, self.forest)
+        return True
+
+    exportFile = export_file
 
     def set_forest(self, fd: formats.ForestData) -> None:
         self.forest = fd
@@ -384,11 +391,22 @@ class RTree:
 
     readPartMap = read_part_map
 
+    # the training entry points live in avatar_tpu_torch.train.forest
     def train_from_avatar(self, *args, **kwargs):
-        raise NotImplementedError(
-            "forest training is not ported yet (ROADMAP A5)")
+        from avatar_tpu_torch.train.forest import train_from_avatar
+
+        return train_from_avatar(self, *args, **kwargs)
 
     trainFromAvatar = train_from_avatar
-    train_transfer = train_from_avatar
-    trainTransfer = train_from_avatar
-    train = train_from_avatar
+
+    def train_transfer(self, *args, **kwargs):
+        from avatar_tpu_torch.train.forest import train_transfer
+
+        return train_transfer(self, *args, **kwargs)
+
+    trainTransfer = train_transfer
+
+    def train(self, *args, **kwargs):
+        from avatar_tpu_torch.train.forest import train_from_files
+
+        return train_from_files(self, *args, **kwargs)

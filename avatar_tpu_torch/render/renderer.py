@@ -25,7 +25,8 @@ from avatar_tpu_torch.render.raster import project_points
 
 
 class FrameRender(NamedTuple):
-    """All per-frame render products."""
+    """All per-frame render products (``render_frames`` puts a batch axis
+    in front of each)."""
     fid: torch.Tensor        # [H,W] int32, -1 background
     depth: torch.Tensor      # [H,W] f32, 0 background or edge-on winner
     part_mask: torch.Tensor  # [H,W] uint8, 255 background
@@ -34,37 +35,41 @@ class FrameRender(NamedTuple):
 
 
 def face_normals(cloud: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Unit face normals [..., F, 3] of cloud [..., P, 3]."""
     faces = faces.long()
-    a, b, c = cloud[faces[:, 0]], cloud[faces[:, 1]], cloud[faces[:, 2]]
+    a, b, c = (cloud[..., faces[:, k], :] for k in range(3))
     n = torch.linalg.cross(b - a, c - a)
     return n / torch.linalg.norm(n, dim=-1, keepdim=True).clamp(min=1e-12)
 
 
-def render_frame(cloud: torch.Tensor, faces: torch.Tensor,
-                 vertex_part: torch.Tensor, fx: float, fy: float, cx: float,
-                 cy: float, height: int, width: int, budget: int
-                 ) -> FrameRender:
-    """Raster + depth + part mask for one posed cloud.
+def render_frames(cloud: torch.Tensor, faces: torch.Tensor,
+                  vertex_part: torch.Tensor, fx: float, fy: float, cx: float,
+                  cy: float, height: int, width: int, budget: int
+                  ) -> FrameRender:
+    """Raster + depth + part mask for a batch of posed clouds [B, P, 3]:
+    every field of the result has a leading B, and a frame's result does
+    not depend on the frames beside it (``raster.rasterize_batch``).
 
     vertex_part: [P] int body part per vertex (part_map[main_joint]).
     """
     faces = faces.long()
-    proj = project_points(cloud, fx, fy, cx, cy)
+    B = cloud.shape[0]
+    proj = project_points(cloud, fx, fy, cx, cy)        # [B,P,2]
     z = cloud[..., 2]
-    edge_on = torch.abs(face_normals(cloud, faces)[:, 2]) < 0.1
+    edge_on = torch.abs(face_normals(cloud, faces)[..., 2]) < 0.1   # [B,F]
 
-    out = raster.rasterize(proj, z, faces, height, width, budget)
+    out = raster.rasterize_batch(proj, z, faces, height, width, budget)
 
     hit = out.fid >= 0
     f_safe = torch.clamp(out.fid, min=0).long()
-    winner_edge_on = edge_on[f_safe] & hit
+    winner_edge_on = raster._per_slot(edge_on, f_safe) & hit
     depth = torch.where(winner_edge_on, 0.0, out.depth)
 
     # nearest-corner part assignment (paintPartsTriangleNN)
     yy = torch.arange(height, dtype=proj.dtype, device=proj.device)[:, None]
     xx = torch.arange(width, dtype=proj.dtype, device=proj.device)[None, :]
-    tri = faces[f_safe]                                 # [H,W,3]
-    pv = proj[tri]                                      # [H,W,3,2]
+    tri = faces[f_safe]                                 # [B,H,W,3]
+    pv = raster._per_slot(proj, tri)                    # [B,H,W,3,2]
     d2 = (pv[..., 0] - xx[..., None]) ** 2 + (pv[..., 1] - yy[..., None]) ** 2
     nearest = torch.argmin(d2, dim=-1)                  # first on ties
     vid = torch.gather(tri, -1, nearest[..., None])[..., 0]
@@ -73,6 +78,17 @@ def render_frame(cloud: torch.Tensor, faces: torch.Tensor,
                        torch.full_like(part, 255))
     return FrameRender(fid=out.fid, depth=depth, part_mask=part,
                        bary=out.bary, n_dropped=out.n_dropped)
+
+
+def render_frame(cloud: torch.Tensor, faces: torch.Tensor,
+                 vertex_part: torch.Tensor, fx: float, fy: float, cx: float,
+                 cy: float, height: int, width: int, budget: int
+                 ) -> FrameRender:
+    """``render_frames`` for one posed cloud [P, 3]; the result has no
+    leading axis."""
+    out = render_frames(cloud[None], faces, vertex_part, fx, fy, cx, cy,
+                        height, width, budget)
+    return FrameRender(*(x[0] for x in out))
 
 
 def render_lambert(cloud: torch.Tensor, faces: torch.Tensor, fx: float,

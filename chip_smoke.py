@@ -80,7 +80,31 @@ each (any failure exits non-zero and prints no result):
    than that from its start.  B2 held against its plain version on every
    launch.
 
-10. profile — ``torch.profiler`` over the planned search of phase 3: the
+10. training — the forest trainer on the card, by the bench forest's
+   recipe (``scripts/train_bench_forest_torch.py``, which a user runs too):
+   the detail-6 model, 14 part groups, the 1280x720 camera at train stride
+   3 (240 x 427 frames), 2000 points per image, 512 features filtered to
+   64 per node, 16 buckets, min_samples 48, balance 0.5, image batch 72.
+   Only the scale is cut: 1024 images and depth 10 (the committed forests
+   used 8-16k images at depth 17-18).  It runs no hand-written kernel.
+   Fails unless (a) training finishes with the frame cache and the
+   samples on the card; (b) children are in range and every leaf sums to
+   1 within 1e-5; (c) the exported ``.srtr`` reads back equal; (d)
+   per-pixel accuracy at stride 3 on 16 fresh 1280x720 frames clears
+   ``TRAIN_ACCURACY`` (printed beside the committed
+   ``data/bench_forest_g14c.srtr`` on the same frames), and a control, the
+   tree cut to its root's leaf, misses it; (e) at 16 images, depth 6 and
+   24 features the flat and the batch pass modes grow one tree; (f) from
+   one in-memory frame source the card grows the CPU's tree; (g)
+   ``train_transfer`` on 8 fresh frames changes leaves that still sum to
+   1.  Prints frames rendered per second, the parts of one frame (pose
+   draws, ``lbs``, ``render_frame`` alone, ``render_frames`` per image
+   batch), per-level wall time and device
+   time by pass (CUDA events around every pass of a second, instrumented
+   run, which must grow the same tree), probe evaluations per second, the
+   frame cache's bytes and the count scatter's device time with
+   deterministic algorithms on and off.
+11. profile — ``torch.profiler`` over the planned search of phase 3: the
    device launches per search and each kernel's own device time (last,
    because a process that has run the profiler pays more for every
    launch after it).
@@ -115,6 +139,7 @@ HOST_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                             "torch_port_720p_host.npz")
 FORESTS = [os.path.join(ROOT, "data", f"bench_forest_r5{s}.srtr")
            for s in ("", "_1", "_2")]
+GROUP_FOREST = os.path.join(ROOT, "data", "bench_forest_g14c.srtr")
 H, W = 720, 1280
 # bench.py's tracker config (cfg_kw), which the fixture was tracked with
 BENCH_CFG = dict(data_interval=6, min_points=1000, frame_icp_iters=2,
@@ -131,6 +156,10 @@ PROBE_MM = 1.0           # fit_rmse_mm bound (bench.py's gate)
 PROBE_REF_MM = 0.2       # |port - reference| fit_rmse_mm
 HOST_SLACK_MM = 10.0     # free-running host tracker over a reference > 40 mm
 LIBRARY_FIT_MM = 0.5     # unpadded (B2) fit vs bucketed (B1) fit, joints
+TRAIN_IMAGES = 1024      # phase 10's scale: the recipe's widths, cut in
+TRAIN_DEPTH = 10         # images and depth only
+TRAIN_ACCURACY = 0.6     # held-out per-pixel accuracy, group space, stride 3
+                         # (first run: 0.6681; the majority group: 0.3090)
 # the card's peaks for the bound (NVIDIA H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -1037,6 +1066,336 @@ def phase_library(scene, samples):
     return launches, err
 
 
+_TREE_FIELDS = ("u", "v", "thresh", "lnode", "rnode", "leafid", "leaf_data")
+
+
+def _tree_diff(a, b):
+    """The fields in which two forests differ ([] when equal)."""
+    return [f for f in _TREE_FIELDS
+            if not np.array_equal(getattr(a, f), getattr(b, f))]
+
+
+class _MemorySource:
+    """Frames held in host memory, as a trainer's ``frame_source``."""
+
+    def __init__(self, depth, mask):
+        self.depth, self.mask = depth, mask
+
+    def size(self):
+        return len(self.depth)
+
+    def load_batch(self, ids):
+        ids = np.asarray(ids)
+        return self.depth[ids], self.mask[ids]
+
+
+@contextlib.contextmanager
+def _timed_passes(tforest, log: list):
+    """CUDA events around every level pass the block makes: ``log`` gets
+    (pass name, level index at the time, start event, end event)."""
+    import torch
+
+    names = ("pass_minmax_flat", "pass_counts_flat", "pass_assign_flat",
+             "split_gains", "split_decide")
+    real = {n: getattr(tforest, n) for n in names}
+    depth = [0]
+
+    def timed(name):
+        def run(*a, **kw):
+            if depth[0]:        # split_gains inside split_decide
+                return real[name](*a, **kw)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            depth[0] += 1
+            start.record()
+            try:
+                out = real[name](*a, **kw)
+            finally:
+                depth[0] -= 1
+            end.record()
+            log.append((name, start, end))
+            return out
+        return run
+
+    for n in names:
+        setattr(tforest, n, timed(n))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(tforest, n, real[n])
+
+
+def phase_train(scene, images=TRAIN_IMAGES, depth=TRAIN_DEPTH, n_eval=16):
+    """The forest trainer on the card at the bench forest's widths."""
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import train_bench_forest_torch as bench
+
+    from avatar_tpu_torch.core.lbs import lbs
+    from avatar_tpu_torch.io import formats
+    from avatar_tpu_torch.perception.rtree import RTree
+    from avatar_tpu_torch.render import raster
+    from avatar_tpu_torch.render.renderer import render_frame, render_frames
+    from avatar_tpu_torch.train import forest as tforest
+    from avatar_tpu_torch.train import synth
+
+    dev, model = scene.dev, scene.model
+    part_map, num_parts = bench.label_space(True)
+
+    # (a) the main path: ForestTrainer.train by the recipe
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fd, trainer = bench.train_bench_tree(model, images, depth)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    cache = trainer._depth_cache
+    H_, W_ = trainer.H, trainer.W
+    print(f"[train] recipe: detail-6 model ({model.num_points()} vertices, "
+          f"{model.num_faces()} faces), {num_parts} groups, {W_}x{H_} frames "
+          f"(1280x720 at stride 3), {trainer.S} points per image, "
+          f"{trainer.F} features filtered to {trainer.F_filtered}, "
+          f"{trainer.T} buckets, min_samples {trainer.min_samples}, balance "
+          f"{trainer.sample_balance}, image batch {trainer.B}; scale cut to "
+          f"{images} images and depth {depth}", flush=True)
+    if (H_, W_, trainer.S, trainer.F, trainer.F_filtered, trainer.T,
+            num_parts, trainer.B) != (240, 427, 2000, 512, 64, 16, 14, 72):
+        fail("[train] the trainer does not run at the recipe's widths")
+    if not (cache.is_cuda and trainer.samples.x.is_cuda
+            and cache.shape == (images, H_, W_)
+            and cache.element_size() == 2):
+        fail("[train] the frame cache or the samples are not on the card")
+    n_valid = int(trainer.samples.valid.sum())
+    print(f"[train] {images} frames rendered and sampled in "
+          f"{trainer.init_seconds:.2f} s ({images / trainer.init_seconds:.1f}"
+          f" frames per second), {n_valid} samples; frame cache "
+          f"{cache.numel() * cache.element_size()} bytes on the card, peak "
+          f"device memory {peak} bytes; training {train_s:.2f} s in all, "
+          f"{fd.num_nodes} nodes, {int((fd.leafid >= 0).sum())} leaves",
+          flush=True)
+    # a frame's parts at the recipe's size: skinning is a loop over poses,
+    # the raster one call per image batch
+    src, n_keys = trainer.src, model.num_shape_keys()
+    w, p, rots = synth.sample_pose(src, np.arange(trainer.B), trainer.seed,
+                                   n_keys)
+    clouds = torch.stack([lbs(src.lbs, model.parents, w[b], p[b],
+                              rots[b])[0] for b in range(trainer.B)])
+    budget = raster.default_budget(H_, W_, model.num_faces())
+    rest = (src.faces, src.vertex_part, *src.intrin.unbind(0), H_, W_,
+            budget)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        synth.sample_pose(src, np.arange(trainer.B), trainer.seed, n_keys)
+    torch.cuda.synchronize()
+    pose_ms = (time.perf_counter() - t0) * 100 / trainer.B
+    lbs_ms = _time_ms(lambda: lbs(src.lbs, model.parents, w[0], p[0],
+                                  rots[0]))
+    one_ms = _time_ms(lambda: render_frame(clouds[0], *rest))
+    batch_ms = _time_ms(lambda: render_frames(clouds, *rest), reps=5)
+    print(f"[train] a frame at {W_}x{H_}: sample_pose {pose_ms:.3f} ms "
+          f"(host clock, per pose of a batch), lbs {lbs_ms:.3f} ms, "
+          f"render_frame alone {one_ms:.3f} ms, render_frames of "
+          f"{trainer.B} poses {batch_ms:.3f} ms = "
+          f"{batch_ms / trainer.B:.3f} ms per frame (budget {budget}; events"
+          " around one call, median of 20, of 5 for the batch)", flush=True)
+    evals = sum(s["probe_evals"] for s in trainer.level_stats)
+    wall = sum(s["wall_s"] for s in trainer.level_stats)
+    print(f"[train] {len(trainer.level_stats)} levels in {wall:.2f} s: "
+          f"{evals} probe evaluations, {evals / wall:.4g} per second",
+          flush=True)
+
+    # (b) the tree is sound
+    internal = fd.leafid < 0
+    kids = np.concatenate([fd.lnode[internal], fd.rnode[internal]])
+    sums = fd.leaf_data.sum(1)
+    if not (internal.sum() > 3 and kids.min() > 0
+            and kids.max() < fd.num_nodes
+            and len(np.unique(kids)) == fd.num_nodes - 1):
+        fail("[train] children out of range or not a tree")
+    if not (np.isfinite(fd.leaf_data).all()
+            and np.abs(sums - 1.0).max() <= 1e-5):
+        fail(f"[train] leaf distributions sum to {sums.min()}..{sums.max()}")
+
+    # (c) the export round-trips, through the reader the tracker uses
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trained.srtr")
+        bench.write_forest(path, fd, True, dev)
+        back = formats.read_srtr(path)
+        tree = RTree(path, device=dev)
+    diff = _tree_diff(back, fd)
+    if diff or back.num_parts != num_parts or \
+            list(tree.part_map) != list(part_map):
+        fail(f"[train] the exported .srtr reads back different in {diff}")
+    print(f"[train] tree sound ({int(internal.sum())} splits, every leaf "
+          f"sums to 1 within {np.abs(sums - 1.0).max():.2g}); exported "
+          ".srtr and .partmap read back equal", flush=True)
+
+    # (d) held-out accuracy, beside the committed forest and a control
+    t0 = time.perf_counter()
+    ev_depth, ev_mask = bench.held_out_frames(model, True, n_eval)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    acc, per_part, total = bench.held_out_accuracy([tree], ev_depth, ev_mask,
+                                                   num_parts)
+    committed = RTree(GROUP_FOREST, device=dev)
+    acc_c, _, _ = bench.held_out_accuracy([committed], ev_depth, ev_mask,
+                                          num_parts)
+    hist = np.bincount(trainer.samples.part[trainer.samples.valid]
+                       .cpu().numpy(), minlength=num_parts)
+    root = RTree(num_parts, device=dev)
+    root.set_forest(formats.ForestData(
+        np.zeros((1, 2), np.float32), np.zeros((1, 2), np.float32),
+        np.zeros(1, np.float32), np.full(1, -1, np.int32),
+        np.full(1, -1, np.int32), np.zeros(1, np.int32),
+        (hist / hist.sum()).astype(np.float32)[None], num_parts))
+    acc_0, _, _ = bench.held_out_accuracy([root], ev_depth, ev_mask,
+                                          num_parts)
+    print(f"[train] held-out accuracy on {n_eval} fresh {W}x{H} frames "
+          f"(seed {bench.EVAL_SEED}, rendered in {render_s:.2f} s, "
+          f"{int(total.sum())} pixels at stride 3, group space): trained "
+          f"{acc:.4f} (bound {TRAIN_ACCURACY}), committed "
+          f"bench_forest_g14c.srtr {acc_c:.4f}, control (the tree cut to its "
+          f"root's leaf, group {int(np.argmax(hist))}) {acc_0:.4f}; worst "
+          "groups " + " ".join(f"g{p}={per_part[p]:.2f}"
+                               for p in np.argsort(per_part)[:4]),
+          flush=True)
+    if not acc > TRAIN_ACCURACY:
+        fail(f"[train] held-out accuracy {acc:.4f} <= {TRAIN_ACCURACY}")
+    if not acc_0 < TRAIN_ACCURACY:
+        fail(f"[train] the control's accuracy {acc_0:.4f} meets the bound")
+
+    # (e) flat and batch pass modes grow one tree on the card
+    small = dict(features=24, filtered=0, seed=7)
+    fd_f, tr_f = bench.train_bench_tree(model, 16, 6, pass_mode="flat",
+                                        **small)
+    fd_b, _ = bench.train_bench_tree(model, 16, 6, pass_mode="batch",
+                                     **small)
+    diff = _tree_diff(fd_f, fd_b)
+    print(f"[train] 16 images, depth 6, 24 features: flat and batch modes "
+          f"grow {fd_f.num_nodes} and {fd_b.num_nodes} nodes, differing in "
+          f"{diff or 'nothing'}", flush=True)
+    if diff or fd_f.num_nodes < 7:
+        fail("[train] flat and batch pass modes grow different trees")
+
+    # (f) the card grows the CPU's tree from the same frames in memory
+    # (every random choice numpy's)
+    source = _MemorySource(
+        tforest._decode_mm(tr_f._depth_cache).cpu().numpy(),
+        synth.render_batch(tr_f.src, model.parents, np.arange(16), 7,
+                           tr_f.H, tr_f.W,
+                           model.num_shape_keys())[1].cpu().numpy())
+    kw = dict(num_parts=num_parts, num_images=16, num_points_per_image=2000,
+              num_features=24, max_probe_offset=220.0 / 3, min_samples=48,
+              max_tree_depth=6, image_batch=72, seed=7, frame_source=source)
+    fd_card = tforest.ForestTrainer(None, None, (tr_f.H, tr_f.W), device=dev,
+                                    **kw).train()
+    fd_cpu = tforest.ForestTrainer(None, None, (tr_f.H, tr_f.W),
+                                   device="cpu", **kw).train()
+    diff = _tree_diff(fd_card, fd_cpu)
+    print(f"[train] in-memory frame source, 16 images, depth 6: the card "
+          f"grows {fd_card.num_nodes} nodes, the CPU {fd_cpu.num_nodes}, "
+          f"differing in {diff or 'nothing'}", flush=True)
+    if diff:
+        n = min(fd_card.num_nodes, fd_cpu.num_nodes)
+        bad = [i for i in range(n) if any(
+            not np.array_equal(getattr(fd_card, f)[i], getattr(fd_cpu, f)[i])
+            for f in _TREE_FIELDS[:6])]
+        i = bad[0] if bad else n
+        fail(f"[train] the card's tree differs from the CPU's from node {i}:"
+             f" card u {fd_card.u[i]} v {fd_card.v[i]} thresh "
+             f"{fd_card.thresh[i]}, CPU u {fd_cpu.u[i]} v {fd_cpu.v[i]} "
+             f"thresh {fd_cpu.thresh[i]}")
+
+    # (g) leaf transfer on fresh full-resolution frames
+    old_leaf = tree.forest.leaf_data.copy()
+    t0 = time.perf_counter()
+    tree.train_transfer(model, None, scene.intrin, (H, W), num_images=8,
+                        seed=31)
+    transfer_s = time.perf_counter() - t0
+    new_leaf = tree.forest.leaf_data
+    moved = int((np.abs(new_leaf - old_leaf).max(1) > 1e-6).sum())
+    print(f"[train] train_transfer on 8 fresh {W}x{H} frames in "
+          f"{transfer_s:.2f} s: {moved} of {len(new_leaf)} leaves changed, "
+          f"sums within {np.abs(new_leaf.sum(1) - 1.0).max():.2g} of 1",
+          flush=True)
+    if moved == 0 or np.abs(new_leaf.sum(1) - 1.0).max() > 1e-5 or \
+            not np.array_equal(tree.forest.thresh, fd.thresh):
+        fail("[train] train_transfer left the leaves unchanged or "
+             "unnormalized")
+
+    # where a level's time goes: the same training again with CUDA events
+    # around every pass; it must grow the same tree
+    log = []
+    with _timed_passes(tforest, log):
+        trainer2 = bench.make_trainer(model, images, depth)
+        marks, level = [], trainer2._train_level
+
+        def mark_level():
+            marks.append(len(log))
+            level()
+
+        trainer2._train_level = mark_level
+        fd2 = trainer2.train()
+    torch.cuda.synchronize()
+    fd2.u, fd2.v = fd2.u * 3.0, fd2.v * 3.0
+    if _tree_diff(fd2, fd):
+        fail("[train] a second training run grew another tree: "
+             f"{_tree_diff(fd2, fd)}")
+    marks.append(len(log))
+    totals = {}
+    for lv, (st1, st2) in enumerate(zip(trainer.level_stats,
+                                        trainer2.level_stats)):
+        by = {}
+        for name, start, end in log[marks[lv]:marks[lv + 1]]:
+            by[name] = by.get(name, 0.0) + start.elapsed_time(end)
+        for k, v in by.items():
+            totals[k] = totals.get(k, 0.0) + v
+        dev_ms = sum(by.values())
+        print(f"[train] level {lv}: {st1['nodes']} nodes, "
+              f"{st1['frontier_samples']} samples in them, "
+              f"{st1['probe_evals']} probe evaluations; wall "
+              f"{st1['wall_s'] * 1e3:.1f} ms (instrumented run "
+              f"{st2['wall_s'] * 1e3:.1f} ms), device {dev_ms:.1f} ms: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in sorted(by.items())),
+              flush=True)
+    wall2 = sum(s["wall_s"] for s in trainer2.level_stats) * 1e3
+    print(f"[train] second run grew the same tree; all levels: device "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(totals.items()))
+          + f" = {sum(totals.values()):.1f} ms of {wall2:.1f} ms wall (the "
+          "rest: host bookkeeping, uploads, downloads and idle device)",
+          flush=True)
+
+    # the count scatter at the dense pass's shape, deterministic
+    # algorithms on and off (whole-number counts: the same either way)
+    for what, cells in (("512 nodes", 512 * 64 * 16 * 14),
+                        ("1 node", 64 * 16 * 14)):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        idx = torch.randint(0, cells, ((1 << 17) * 64,), device=dev,
+                            generator=gen)
+        ones = torch.ones(1, device=dev).expand(idx.shape[0])
+        scatter = lambda: torch.zeros(cells + 1, device=dev).scatter_add_(
+            0, idx, ones)
+        det = scatter()
+        ms_on = _device_ms(scatter, dev, n=5, runs=3)
+        torch.use_deterministic_algorithms(False)
+        try:
+            free = scatter()
+            ms_off = _device_ms(scatter, dev, n=5, runs=3)
+        finally:
+            torch.use_deterministic_algorithms(True)
+        if not (torch.equal(det, free) and torch.equal(
+                free, tforest._count(idx, cells + 1))):
+            fail("[train] the count scatter depends on its algorithm")
+        print(f"[train] count scatter, {idx.shape[0]} ones into {cells} "
+              f"cells ({what} x 64 features x 16 buckets x 14 groups): "
+              f"device_ms {ms_on:.3f} with deterministic algorithms, "
+              f"{ms_off:.3f} without; counts equal", flush=True)
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "avatar_tpu_torch")):
         fail("run from a checkout of the repository: avatar_tpu_torch/ "
@@ -1056,6 +1415,7 @@ def main():
     *host, samples = phase_host(scene)
     paths["host"] = tuple(host)
     paths["library"] = phase_library(scene, samples)
+    phase_train(scene)
     # every recorded launch of each path was held against the plain
     # version, to the last bit
     path_err = max(out[-1] for out in paths.values())

@@ -1,8 +1,10 @@
 """On the card: the hand-written CUDA kernel against its plain PyTorch
 version (B1 at the fit's planned shapes, B2 at the unplanned
 ``find_nn_stats``'s, the fused search, and cases built against the merge of
-the kernel's work units), and the renderer and ``find_nn_stats`` against
-the same functions on the CPU.  Imports
+the kernel's work units), and the renderer, ``find_nn_stats`` and the
+forest trainer's passes (the frame cache's gather, min/max, counts,
+assignment, gains, the device sampler) against the same functions on the
+CPU.  Imports
 no JAX (the card's machine has none); on a machine without a CUDA device
 every test skips.  On the card:
 
@@ -120,6 +122,39 @@ def test_render_frame_on_card_matches_cpu(cuda):
     torch.testing.assert_close(got.depth.cpu()[same], ref.depth[same],
                                rtol=0.0, atol=1e-5)
     assert torch.equal(got.part_mask.cpu()[same], ref.part_mask[same])
+
+
+@pytest.mark.cuda
+def test_frames_in_a_batch_equal_frames_alone_on_card(cuda):
+    """``render_frames`` of 5 poses at the trainer's 240x427, with a budget
+    that overflows on the nearest pose: every field of every frame equals
+    ``render_frame`` of that pose alone, to the bit."""
+    from avatar_tpu_torch.core.model import Avatar
+    from avatar_tpu_torch.render import renderer
+    from avatar_tpu_torch.testing import synthetic_model
+
+    model = synthetic_model(detail=6, device="cpu")
+    ava = Avatar(model)
+    clouds = []
+    for seed, depth in enumerate((1.2, 2.4, 3.0, 3.6, 4.4)):
+        ava.randomize(seed=seed)
+        ava.p = np.array([0.2 * seed - 0.4, 0.0, depth])
+        ava.r[0] = np.diag([-1.0, 1.0, -1.0])
+        ava.update()
+        clouds.append(torch.as_tensor(ava.cloud))
+    clouds = torch.stack(clouds).to(cuda)
+    rest = (torch.as_tensor(model.faces, dtype=torch.int32, device=cuda),
+            torch.as_tensor(model.main_joint, dtype=torch.int32,
+                            device=cuda),
+            606.438 / 3, 606.351 / 3, 637.294 / 3, 366.992 / 3, 240, 427,
+            120000)
+    batch = renderer.render_frames(clouds, *rest)
+    assert int(batch.n_dropped[0]) > 0 and int(batch.n_dropped[4]) == 0
+    assert int((batch.fid[2] >= 0).sum()) > 1000
+    for b in range(5):
+        alone = renderer.render_frame(clouds[b], *rest)
+        for name, x, y in zip(alone._fields, alone, batch):
+            assert torch.equal(x, y[b]), (b, name)
 
 
 @pytest.mark.cuda
@@ -298,3 +333,189 @@ def test_fused_search_matches_plain(cuda, model_sorted, gate):
     if gate is not None:
         wild_rows = plan.dpart == SMPL24_NUM_GROUPS
         assert (got[1][wild_rows] == -1).any(), "the gate bites"
+
+
+# ---------------------------------------------------------------------------
+# the forest trainer's passes (torch code, no hand-written kernel): the
+# card against the CPU on the same inputs
+# ---------------------------------------------------------------------------
+
+
+def _trainer_inputs(seed=0, n_img=6, H=60, W=80, M=5000, NC=7, F=16):
+    """A uint16-mm frame cache with background, samples on foreground
+    pixels, a node slot per sample (-1: skip) and per-node features."""
+    rng = np.random.default_rng(seed)
+    mm = rng.integers(500, 60000, (n_img, H, W)).astype(np.uint16)
+    mm[rng.random(mm.shape) < 0.3] = 0
+    mm[0, 0, :5] = [0, 1, 32767, 32768, 65535]
+    img = rng.integers(0, n_img, M)
+    sx, sy = rng.integers(0, W, M), rng.integers(0, H, M)
+    nl = rng.integers(-1, NC, M).astype(np.int32)
+    nl[mm[img, sy, sx] == 0] = -1
+    return dict(
+        bits=torch.from_numpy(mm.reshape(-1).view(np.int16)), mm=mm,
+        pos=torch.as_tensor(img * (H * W)), sx=torch.as_tensor(sx),
+        sy=torch.as_tensor(sy), nl=torch.as_tensor(nl),
+        part=torch.as_tensor(rng.integers(0, 14, M)),
+        fu=torch.as_tensor(rng.uniform(-70, 70, (NC, F, 2)),
+                           dtype=torch.float32),
+        fv=torch.as_tensor(rng.uniform(-70, 70, (NC, F, 2)),
+                           dtype=torch.float32),
+        H=H, W=W, NC=NC)
+
+
+@pytest.mark.cuda
+def test_frame_cache_gather_on_card(cuda):
+    """The uint16-mm cache kept as int16 bits: written, indexed and
+    decoded on the card, every value comes back (0, 1, 32767, 32768 and
+    65535 mm among them)."""
+    from avatar_tpu_torch.train import forest
+
+    d = _trainer_inputs()
+    metres = torch.as_tensor(d["mm"].astype(np.float32) * 1e-3, device=cuda)
+    cache = torch.zeros(d["mm"].shape, dtype=torch.int16, device=cuda)
+    forest._cache_write(cache[:4], metres[:4], 0)
+    forest._cache_write(cache, metres[4:], 4)
+    assert torch.equal(cache.cpu().reshape(-1), d["bits"])
+    idx = torch.randint(0, cache.numel(), (4096, 3), device=cuda)
+    got = torch.round(forest._decode_mm(cache.reshape(-1)[idx]) * 1000)
+    want = d["mm"].reshape(-1)[idx.cpu().numpy()].astype(np.float32)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert got[0:0].dtype == torch.float32
+
+
+@pytest.mark.cuda
+def test_trainer_passes_on_card_match_cpu(cuda):
+    """Scores, min/max, counts, assignment and split decisions on the card
+    equal the CPU's on the same inputs (gains to rounding), with and
+    without deterministic algorithms."""
+    from avatar_tpu_torch.train import forest
+
+    d = _trainer_inputs()
+    H, W, NC, T, P = d["H"], d["W"], d["NC"], 16, 14
+    out = {}
+    for dev in ("cpu", cuda):
+        t = {k: (v.to(dev) if torch.is_tensor(v) else v)
+             for k, v in d.items()}
+        flat = (t["bits"], t["pos"], t["sx"], t["sy"])
+        live = t["nl"] >= 0
+        fu_s, fv_s = forest._per_sample(t["fu"], t["fv"], t["nl"])
+        scores = forest._flat_scores(t["bits"], H, W, t["pos"], t["sx"],
+                                     t["sy"], live, fu_s, fv_s)
+        smin, smax = forest.pass_minmax_flat(*flat, t["nl"], t["fu"],
+                                             t["fv"], H, W, NC)
+        counts = forest.pass_counts_flat(*flat, t["part"], t["nl"], t["fu"],
+                                         t["fv"], smin, smax, H, W, NC, T, P)
+        decide = forest.split_decide(counts, smin, smax, T)
+        n_nodes = 2 * NC + 1
+        node = torch.where(live, t["nl"], -1)
+        f_best = decide[1].long()
+        pick = lambda a: a[torch.arange(NC, device=dev), f_best]
+        pad = lambda a: torch.cat([a, torch.zeros(
+            (n_nodes - NC,) + a.shape[1:], dtype=a.dtype, device=dev)])
+        child = forest.pass_assign_flat(
+            *flat, node, pad(pick(t["fu"])), pad(pick(t["fv"])),
+            pad(decide[2]), pad(torch.arange(NC, device=dev,
+                                             dtype=torch.int32) + NC),
+            pad(torch.arange(NC, device=dev, dtype=torch.int32) + 2 * NC),
+            pad(torch.ones(NC, dtype=torch.bool, device=dev)), H, W)
+        out[str(dev)] = [x.cpu() for x in (scores, smin, smax, counts,
+                                           *decide, child)]
+    names = ("scores", "smin", "smax", "counts", "gain", "f_best", "thresh",
+             "range", "n", "part_hist", "child")
+    for name, a, b in zip(names, out["cpu"], out[str(cuda)]):
+        if name == "gain":
+            torch.testing.assert_close(b, a, rtol=2e-3, atol=1e-2)
+        elif name == "thresh":
+            torch.testing.assert_close(b, a, rtol=1e-6, atol=0.0)
+        else:
+            assert torch.equal(a, b), name
+    assert out["cpu"][3].sum() == int((d["nl"] >= 0).sum()) * 16
+    assert (out["cpu"][10] != d["nl"]).sum() > 1000
+
+    # the count scatter is exact, so deterministic mode changes nothing
+    idx = torch.randint(0, 5000, (1 << 18,), device=cuda)
+    free = forest._count(idx, 5000)
+    torch.use_deterministic_algorithms(True)
+    try:
+        det = forest._count(idx, 5000)
+        assert torch.are_deterministic_algorithms_enabled()
+        forest.split_gains(out[str(cuda)][3].to(cuda))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(free, det)
+    assert torch.equal(free.cpu(), torch.bincount(
+        idx.cpu(), minlength=5000).float())
+
+
+@pytest.mark.cuda
+def test_device_sampler_with_cuda_generator(cuda):
+    """``sample_pixels_device`` on the card with a CUDA generator: the
+    same seed gives the same draw; no pixel twice; every valid draw is
+    foreground with its own label; a frame with fewer than S foreground
+    pixels and an empty frame are handled."""
+    from avatar_tpu_torch.train import forest
+
+    rng = np.random.default_rng(3)
+    B, H, W, S = 4, 48, 64, 500
+    mask = rng.integers(0, 14, (B, H, W)).astype(np.uint8)
+    mask[:, :, :20] = 255
+    mask[2, :, 22:] = 255                       # 96 foreground pixels
+    mask[3] = 255                               # none
+    depth = np.where(mask != 255, 2.0, 0.0).astype(np.float32)
+    depth_t, mask_t = (torch.as_tensor(a, device=cuda) for a in (depth, mask))
+    draws = []
+    for _ in range(2):
+        gen = torch.Generator(device=cuda).manual_seed(11)
+        draws.append(forest.sample_pixels_device(depth_t, mask_t, S, 14,
+                                                 0.5, gen))
+    for a, b in zip(*draws):
+        assert torch.equal(a, b)
+    x, y, part, valid = (a.cpu() for a in draws[0])
+    assert valid.sum(1).tolist() == [S, S, 96, 0]
+    for k in range(B):
+        pix = (y[k].long() * W + x[k])[valid[k]]
+        assert pix.unique().numel() == pix.numel()
+        assert (mask[k][y[k][valid[k]], x[k][valid[k]]] ==
+                part[k][valid[k]].numpy()).all()
+    assert (part[~valid] == 0).all()
+
+
+@pytest.mark.cuda
+def test_trainer_with_cache_left_on_host(cuda, monkeypatch):
+    """A host-made frame cache larger than half of the card's free memory
+    stays on the host, and the flat mode then scans image batches uploaded
+    one by one: the same tree as with the cache on the card."""
+    from avatar_tpu_torch.train import forest
+
+    rng = np.random.default_rng(5)
+    n_img, H, W = 12, 48, 64
+    mask = np.full((n_img, H, W), 255, np.uint8)
+    depth = np.zeros((n_img, H, W), np.float32)
+    for i in range(n_img):          # a body of 6 bands at changing depth
+        x0 = int(rng.integers(5, 20))
+        for part in range(6):
+            mask[i, 8 * part:8 * part + 8, x0:x0 + 30] = part
+        depth[i][mask[i] != 255] = 1.5 + 0.2 * i
+        depth[i] += np.where(mask[i] != 255, 0.05 * mask[i], 0.0
+                             ).astype(np.float32)
+
+    class Source:
+        def size(self):
+            return n_img
+
+        def load_batch(self, ids):
+            return depth[np.asarray(ids)], mask[np.asarray(ids)]
+
+    kw = dict(num_parts=6, num_images=n_img, num_points_per_image=200,
+              num_features=16, max_probe_offset=30.0, min_samples=8,
+              max_tree_depth=5, image_batch=5, seed=2, frame_source=Source())
+    on_card = forest.ForestTrainer(None, None, (H, W), device=cuda, **kw)
+    fd = on_card.train()
+    assert on_card._depth_cache.is_cuda and (fd.leafid < 0).sum() >= 3
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (1024, 1024))
+    on_host = forest.ForestTrainer(None, None, (H, W), device=cuda, **kw)
+    fd_host = on_host.train()
+    assert not on_host._depth_cache.is_cuda
+    for f in ("u", "v", "thresh", "lnode", "rnode", "leafid", "leaf_data"):
+        np.testing.assert_array_equal(getattr(fd_host, f), getattr(fd, f))
