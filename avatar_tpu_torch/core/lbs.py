@@ -44,6 +44,10 @@ def shape_fwd(params: LBSParams, w: torch.Tensor, use_jsr: bool = True
     return shaped, j_init
 
 
+def shaped_dtype(params: LBSParams):
+    return params.v_template.dtype
+
+
 @functools.lru_cache(maxsize=32)
 def _lifting_pointers(parents: Tuple[int, ...]) -> Tuple[Tuple[int, ...], ...]:
     """Pointer-doubling tables for forward kinematics.

@@ -6,8 +6,9 @@
 an :class:`LBSParams` of torch tensors on ``device``, plus static metadata
 (``parents`` tuple, ``faces``).  ``Avatar`` is the host-side state (API
 parity with the C++ class: update / randomize / smplParams / pdf /
-alignToJoints); its LBS runs on the model's device.  The reference's
-legacy text model format is not ported yet (see ROADMAP.md).
+alignToJoints); its LBS runs on the model's device.  A model directory
+holds ``model.npz`` or the legacy text format (``model.pcd`` +
+``skeleton.txt``), and ``pose_prior.txt`` beside either.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from avatar_tpu_torch.core import rotation
 from avatar_tpu_torch.core.lbs import LBSParams, lbs
 from avatar_tpu_torch.core.pose_prior import GaussianMixture
 from avatar_tpu_torch.device import get_device
+from avatar_tpu_torch.utils import resolve_root_path
 
 
 class SmplJoint:
@@ -71,10 +73,12 @@ class AvatarModel:
     def __init__(self, model_dir: str = "", dtype=torch.float32,
                  device: str | torch.device = "cuda", *,
                  arrays: Optional[dict] = None,
-                 pose_prior: Optional[GaussianMixture] = None):
+                 pose_prior: Optional[GaussianMixture] = None,
+                 limit_one_joint_per_point: bool = False):
         self.device = get_device(device)
         if arrays is None:
-            arrays = _load_model_dir(model_dir)
+            model_dir = model_dir or resolve_root_path("data/avatar-model")
+            arrays = _load_model_dir(model_dir, limit_one_joint_per_point)
             pose_prior = GaussianMixture.load(
                 os.path.join(model_dir, "pose_prior.txt"), dtype, self.device)
         self.model_dir = model_dir
@@ -106,6 +110,10 @@ class AvatarModel:
         # main assigned joint per point: the model part labels
         # (reference AvatarOptimizer.cpp:1227-1243)
         self.main_joint = np.argmax(self.weights_np, axis=1).astype(np.int32)
+        if limit_one_joint_per_point and "joint_shape_reg_base" not in arrays:
+            w1 = np.zeros_like(self.weights_np)
+            w1[np.arange(len(w1)), self.main_joint] = 1.0
+            self.weights_np = w1
 
         # anc[j, k] = 1 iff j is on the path from k to the root
         anc = np.zeros((J, J), np.float64)
@@ -136,14 +144,23 @@ class AvatarModel:
     def num_faces(self) -> int:
         return int(self.faces.shape[0])
 
+    def has_mesh(self) -> bool:
+        return self.num_faces() > 0
 
-def _load_model_dir(model_path: str) -> dict:
+    def has_pose_prior(self) -> bool:
+        return self.pose_prior is not None
+
+
+def _load_model_dir(model_path: str,
+                    limit_one_joint_per_point: bool = False) -> dict:
     npz_path = os.path.join(model_path, "model.npz")
-    if not os.path.exists(npz_path):
+    if os.path.exists(npz_path):
+        return _load_npz(npz_path)
+    if not os.path.exists(os.path.join(model_path, "model.pcd")):
         raise FileNotFoundError(
             f"no avatar model found at {model_path!r}: expected model.npz "
-            "(the legacy text model format is not ported)")
-    return _load_npz(npz_path)
+            "(SMPL npz format) or model.pcd + skeleton.txt (legacy format)")
+    return _load_legacy(model_path, limit_one_joint_per_point)
 
 
 def _load_npz(npz_path: str) -> dict:
@@ -162,6 +179,125 @@ def _load_npz(npz_path: str) -> dict:
                     weights=np.asarray(npz["weights"], np.float64),
                     shapedirs=np.asarray(npz["shapedirs"], np.float64),
                     use_jsr=True)
+
+
+def _read_ascii_pcd(path: str) -> np.ndarray:
+    """Read an ascii PCD into a flat [3N] vector (AvatarHelpers.cpp:13-52)."""
+    with open(path, "r") as f:
+        n_points = -1
+        for line in f:
+            toks = line.split()
+            if not toks:
+                continue
+            if toks[0] == "WIDTH":
+                n_points = int(toks[1])
+            elif toks[0] == "DATA":
+                if toks[1] != "ascii":
+                    raise ValueError(f"non-ascii PCD not supported: {path}")
+                break
+        vals = np.fromstring(f.read(), sep=" ", dtype=np.float64)  # noqa: NPY201
+    if n_points < 0:
+        raise ValueError(f"invalid PCD (no WIDTH): {path}")
+    return vals[: n_points * 3]
+
+
+def _load_legacy(model_path: str, limit_one_joint_per_point: bool) -> dict:
+    """Legacy ad-hoc model format (reference AvatarModel.cpp:128-288):
+    model.pcd + skeleton.txt + shapekey/ dir + joint[_shape]_regressor.txt +
+    mesh.txt."""
+    base = _read_ascii_pcd(os.path.join(model_path, "model.pcd"))
+    v_template = base.reshape(-1, 3)
+
+    with open(os.path.join(model_path, "skeleton.txt"), "r") as f:
+        toks = f.read().split()
+    pos = 0
+
+    def nxt():
+        nonlocal pos
+        t = toks[pos]
+        pos += 1
+        return t
+
+    n_joints, n_points = int(nxt()), int(nxt())
+    parent = np.zeros(n_joints, np.int32)
+    joint_pos = np.zeros((n_joints, 3), np.float64)
+    for _ in range(n_joints):
+        jid = int(nxt())
+        parent[jid] = int(nxt())
+        nxt()  # name
+        joint_pos[jid] = [float(nxt()) for _ in range(3)]
+    parent[0] = -1
+
+    weights = np.zeros((n_points, n_joints), np.float64)
+    for i in range(n_points):
+        n_ent = int(nxt())
+        for _ in range(n_ent):
+            j = int(nxt())
+            wv = float(nxt())
+            weights[i, j] = wv
+    if limit_one_joint_per_point:
+        mj = np.argmax(weights, axis=1)
+        weights = np.zeros_like(weights)
+        weights[np.arange(n_points), mj] = 1.0
+
+    # Shape keys
+    key_dir = os.path.join(model_path, "shapekey")
+    shapedirs = np.zeros((n_points, 3, 0), np.float64)
+    if os.path.isdir(key_dir):
+        names = sorted(os.listdir(key_dir))
+        cols = [_read_ascii_pcd(os.path.join(key_dir, n)).reshape(-1, 3)
+                for n in names]
+        if cols:
+            shapedirs = np.stack(cols, axis=-1)
+
+    out = dict(v_template=v_template, parent=parent, weights=weights,
+               shapedirs=shapedirs)
+
+    jsr_path = os.path.join(model_path, "joint_shape_regressor.txt")
+    jr_path = os.path.join(model_path, "joint_regressor.txt")
+    if os.path.exists(jsr_path):
+        with open(jsr_path) as f:
+            t = f.read().split()
+        q = 0
+        n_keys = int(t[q]); q += 1
+        base_v = np.array([float(x) for x in t[q:q + n_joints * 3]]); q += n_joints * 3
+        mat = np.array([float(x) for x in t[q:q + n_joints * 3 * n_keys]]).reshape(
+            n_joints * 3, n_keys)
+        # stored row-major as (3*J, K) with xyz interleaved per joint
+        out["joint_shape_reg_base"] = base_v.reshape(n_joints, 3)
+        out["joint_shape_reg"] = mat.reshape(n_joints, 3, n_keys)
+        out["joint_reg"] = np.zeros((n_joints, n_points), np.float64)
+        out["use_jsr"] = True
+    elif os.path.exists(jr_path):
+        joint_reg = np.zeros((n_joints, n_points), np.float64)
+        with open(jr_path) as f:
+            t = f.read().split()
+        q = 0
+        nj = int(t[q]); q += 1
+        for j in range(nj):
+            n_ent = int(t[q]); q += 1
+            for _ in range(n_ent):
+                pi = int(t[q]); val = float(t[q + 1]); q += 2
+                joint_reg[j, pi] = val
+        out["joint_reg"] = joint_reg
+        out["use_jsr"] = False
+    else:
+        out["joint_reg"] = np.zeros((n_joints, n_points), np.float64)
+        out["use_jsr"] = True
+        out["joint_shape_reg_base"] = joint_pos
+        out["joint_shape_reg"] = np.zeros((n_joints, 3, shapedirs.shape[2]))
+
+    mesh_path = os.path.join(model_path, "mesh.txt")
+    if os.path.exists(mesh_path):
+        with open(mesh_path) as f:
+            t = f.read().split()
+        n_faces = int(t[0])
+        faces = np.array([int(x) for x in t[1:1 + n_faces * 3]],
+                         np.int32).reshape(n_faces, 3)
+    else:
+        faces = np.zeros((0, 3), np.int32)
+    out["faces"] = faces
+    return out
 
 
 def _rot_between(a: np.ndarray, b: np.ndarray) -> np.ndarray:

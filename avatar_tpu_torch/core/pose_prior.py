@@ -70,6 +70,19 @@ class GaussianMixture:
         covs = a[C + C * D:C + C * D + C * D * D].reshape(C, D, D)
         return cls(weights, means, covs, dtype, device)
 
+    def save(self, path: str) -> None:
+        """Write ``pose_prior.txt`` from the float64 masters, which ``load``
+        of either package reads back exactly."""
+        d = self._np
+        with open(path, "w") as f:
+            f.write(f"{self.n_comps} {self.n_dims}\n")
+            f.write(" ".join(repr(float(x)) for x in d["weights"]) + "\n")
+            for row in d["means"]:
+                f.write(" ".join(repr(float(x)) for x in row) + "\n")
+            for c in d["covs"]:
+                for row in c:
+                    f.write(" ".join(repr(float(x)) for x in row) + "\n")
+
     def _whiten(self, x: torch.Tensor) -> torch.Tensor:
         """[..., D] -> [..., C, D]: L_c^T (x - mu_c) for every component."""
         return torch.einsum("cdk,...cd->...ck", self.prec_cho,

@@ -28,6 +28,7 @@ import torch
 from avatar_tpu_torch.core import rotation
 from avatar_tpu_torch.core.lbs import LBSParams, fk, shape_fwd
 from avatar_tpu_torch.optim import correspond
+from avatar_tpu_torch.profiling import scope
 
 _SQRT_HALF = math.sqrt(0.5)
 
@@ -272,9 +273,10 @@ def fit(ctx: FitContext, parents: Tuple[int, ...], data_pts: torch.Tensor,
     rot_dims[3:3 + 3 * J_all] = 1.0
 
     NP = num_parts or len(parents)     # also the wildcard label id
-    data_pts, data_part, match = correspond.matcher(
-        data_pts, data_part, ctx.model_part, NP, chunk=chunk,
-        model_sorted=model_sorted)
+    with scope("plan"):
+        data_pts, data_part, match = correspond.matcher(
+            data_pts, data_part, ctx.model_part, NP, chunk=chunk,
+            model_sorted=model_sorted)
 
     w_wild = f(wild_weight)
     wild_gate2 = f(wild_gate) ** 2
@@ -297,78 +299,89 @@ def fit(ctx: FitContext, parents: Tuple[int, ...], data_pts: torch.Tensor,
         """NN correspondence, robust weights, statistics, Jacobian, gram
         and gradient, and the cost, all at the current iterate."""
         x, shaped, j_init, Rg, tg, A = fwd
-        vn = torch.einsum("pab,pb->pa", A, n_rest)
-        vn = vn / torch.linalg.norm(vn, dim=-1, keepdim=True).clamp(min=1e-12)
-        if enable_occlusion:
-            vis = vn[:, 2] < occ_margin
-        else:
-            vis = torch.ones(P, dtype=torch.bool, device=dev)
-        if ctx.cand_mask is not None:
-            vis = vis & ctx.cand_mask
-        st = match(x, vis, NP, wild_gate2)
-        valid = st.corr >= 0
-        cidx = torch.clamp(st.corr, min=0).long()
-
-        if robust:
-            r0 = x[cidx] - data_pts
-            dist = torch.sqrt(torch.sum(r0 * r0, -1) + 1e-12)
-            if robust_per_part:
-                vw = valid.to(dtype)
-                acc = part_oh.T @ torch.stack([dist * vw, vw], dim=1)
-                mean_p = acc[:, 0] / torch.clamp(acc[:, 1], min=1.0)
-                delta_h = torch.clamp(huber_k * (part_oh @ mean_p), min=1e-3)
+        with scope("vis"):
+            vn = torch.einsum("pab,pb->pa", A, n_rest)
+            vn = vn / torch.linalg.norm(vn, dim=-1, keepdim=True).clamp(
+                min=1e-12)
+            if enable_occlusion:
+                vis = vn[:, 2] < occ_margin
             else:
-                big = torch.where(valid, dist, torch.full_like(dist, math.nan))
-                med = torch.nan_to_num(_nanmedian(big), nan=0.01)
-                delta_h = torch.clamp(huber_k * med, min=1e-3)
-            wgt = torch.where(valid, torch.clamp(delta_h / dist, max=1.0),
-                              torch.zeros_like(dist))
-        else:
-            wgt = valid.to(dtype)
-        # label-free wildcard matches carry reduced weight
-        wgt = wgt * torch.where(data_part == NP, w_wild, f(1.0))
+                vis = torch.ones(P, dtype=torch.bool, device=dev)
+            if ctx.cand_mask is not None:
+                vis = vis & ctx.cand_mask
+        with scope("nn"):
+            st = match(x, vis, NP, wild_gate2)
+        with scope("weights"):
+            valid = st.corr >= 0
+            cidx = torch.clamp(st.corr, min=0).long()
 
-        idx = torch.where(valid, cidx, P)
-        cs = torch.zeros((P + 1, 4), dtype=dtype, device=dev).index_add_(
-            0, idx, torch.cat([wgt[:, None], data_pts * wgt[:, None]], 1))[:-1]
-        cnt = cs[:, 0]
-        s = cs[:, 1:]
+            if robust:
+                r0 = x[cidx] - data_pts
+                dist = torch.sqrt(torch.sum(r0 * r0, -1) + 1e-12)
+                if robust_per_part:
+                    vw = valid.to(dtype)
+                    acc = part_oh.T @ torch.stack([dist * vw, vw], dim=1)
+                    mean_p = acc[:, 0] / torch.clamp(acc[:, 1], min=1.0)
+                    delta_h = torch.clamp(huber_k * (part_oh @ mean_p),
+                                          min=1e-3)
+                else:
+                    big = torch.where(valid, dist,
+                                      torch.full_like(dist, math.nan))
+                    med = torch.nan_to_num(_nanmedian(big), nan=0.01)
+                    delta_h = torch.clamp(huber_k * med, min=1e-3)
+                wgt = torch.where(valid, torch.clamp(delta_h / dist, max=1.0),
+                                  torch.zeros_like(dist))
+            else:
+                wgt = valid.to(dtype)
+            # label-free wildcard matches carry reduced weight
+            wgt = wgt * torch.where(data_part == NP, w_wild, f(1.0))
 
-        n_matched = torch.sum(valid.to(dtype))
-        scale = torch.sqrt(torch.clamp(n_matched, min=1.0)) / 15.0
-        bp = beta_pose * scale
-        bs = beta_shape * scale
-        bt = w_tmp * scale
+            idx = torch.where(valid, cidx, P)
+            cs = torch.zeros((P + 1, 4), dtype=dtype, device=dev).index_add_(
+                0, idx, torch.cat([wgt[:, None], data_pts * wgt[:, None]],
+                                  1))[:-1]
+            cnt = cs[:, 0]
+            s = cs[:, 1:]
 
-        cost = cost_at(theta, x, cidx, wgt, vn, bp, bs, bt)
-        Jm = _icp_jacobian(ctx, parents, theta, fwd,
-                           with_shape=not freeze_shape)           # [P,3,D]
-        rhs = cnt[:, None] * x - s                                # [P,3]
-        sq = torch.sqrt(torch.clamp(cnt, min=0.0))
-        Jw = (Jm * sq[:, None, None]).reshape(-1, D_fit)
-        JtJ = w_pt ** 2 * (Jw.T @ Jw)
-        Jtr = w_pt ** 2 * (Jm.reshape(-1, D_fit).T @ rhs.reshape(-1))
-        Jpl = torch.einsum("pc,pci->pi", vn, Jm)                  # [P,D]
-        Jplw = Jpl * sq[:, None]
-        JtJ = JtJ + w_pl ** 2 * (Jplw.T @ Jplw)
-        Jtr = Jtr + w_pl ** 2 * (Jpl.T @ torch.sum(vn * rhs, -1))
-        pJtJ, pJtr = _prior_terms(ctx, parents, theta, Rg, bp, bs)
-        JtJ = JtJ + pJtJ[:D_fit, :D_fit]
-        Jtr = Jtr + pJtr[:D_fit]
-        # temporal pose prior: residual log(R_j R_j0^T), Jacobian C_j^T
-        aa_t = rotation.so3_log(torch.einsum("jab,jcb->jac", theta.rots,
-                                             rots0))
-        JtJ = JtJ + bt ** 2 * torch.diag(rot_dims)
-        Cmat = _parent_frames(Rg, parents)
-        Jtr = Jtr.clone()
-        Jtr[3:3 + 3 * J_all] += bt ** 2 * torch.einsum(
-            "jab,jb->ja", Cmat, aa_t).reshape(-1)
-        corr_stable = torch.all(st.corr == corr_prev)
+            n_matched = torch.sum(valid.to(dtype))
+            scale = torch.sqrt(torch.clamp(n_matched, min=1.0)) / 15.0
+            bp = beta_pose * scale
+            bs = beta_shape * scale
+            bt = w_tmp * scale
+
+        with scope("cost"):
+            cost = cost_at(theta, x, cidx, wgt, vn, bp, bs, bt)
+        with scope("jacobian"):
+            Jm = _icp_jacobian(ctx, parents, theta, fwd,
+                               with_shape=not freeze_shape)           # [P,3,D]
+        with scope("gram"):
+            rhs = cnt[:, None] * x - s                                # [P,3]
+            sq = torch.sqrt(torch.clamp(cnt, min=0.0))
+            Jw = (Jm * sq[:, None, None]).reshape(-1, D_fit)
+            JtJ = w_pt ** 2 * (Jw.T @ Jw)
+            Jtr = w_pt ** 2 * (Jm.reshape(-1, D_fit).T @ rhs.reshape(-1))
+            Jpl = torch.einsum("pc,pci->pi", vn, Jm)                  # [P,D]
+            Jplw = Jpl * sq[:, None]
+            JtJ = JtJ + w_pl ** 2 * (Jplw.T @ Jplw)
+            Jtr = Jtr + w_pl ** 2 * (Jpl.T @ torch.sum(vn * rhs, -1))
+            pJtJ, pJtr = _prior_terms(ctx, parents, theta, Rg, bp, bs)
+            JtJ = JtJ + pJtJ[:D_fit, :D_fit]
+            Jtr = Jtr + pJtr[:D_fit]
+            # temporal pose prior: residual log(R_j R_j0^T), Jacobian C_j^T
+            aa_t = rotation.so3_log(torch.einsum("jab,jcb->jac", theta.rots,
+                                                 rots0))
+            JtJ = JtJ + bt ** 2 * torch.diag(rot_dims)
+            Cmat = _parent_frames(Rg, parents)
+            Jtr = Jtr.clone()
+            Jtr[3:3 + 3 * J_all] += bt ** 2 * torch.einsum(
+                "jab,jb->ja", Cmat, aa_t).reshape(-1)
+            corr_stable = torch.all(st.corr == corr_prev)
         return (JtJ, Jtr, cost, n_matched, st.corr, cidx, wgt, vn,
                 torch.stack([bp, bs, bt]), corr_stable)
 
     theta = theta0
-    fwd = _forward(ctx, parents, theta0, use_jsr)
+    with scope("lbs"):
+        fwd = _forward(ctx, parents, theta0, use_jsr)
     lam = f(1e-2)
     accepted = torch.zeros((), dtype=torch.int32, device=dev)
     small_cnt = torch.zeros((), dtype=torch.int32, device=dev)
@@ -389,31 +402,37 @@ def fit(ctx: FitContext, parents: Tuple[int, ...], data_pts: torch.Tensor,
          corr_stable) = lin
         bp, bs, bt = b3[0], b3[1], b3[2]
         Rg = fwd[3]
-        # Marquardt damping with a diagonal floor
-        d = torch.diagonal(JtJ)
-        d = torch.maximum(d, 1e-3 * torch.max(d))
-        M = JtJ + lam * torch.diag(d) + 1e-8 * eye
-        L, info = torch.linalg.cholesky_ex(M)
-        delta = -torch.cholesky_solve(Jtr[:, None], L)[:, 0]
-        # a failed factorization yields NaN, as the reference's does: the
-        # trial cost is NaN and the step is rejected
-        delta = torch.where(info == 0, delta, torch.full_like(delta, math.nan))
-        if freeze_shape:
-            delta = torch.cat([delta, torch.zeros(K_all, dtype=dtype,
-                                                  device=dev)])
-        trial = _retract(theta, delta, Rg, parents)
-        trial_fwd = _forward(ctx, parents, trial, use_jsr)
-        trial_cost = cost_at(trial, trial_fwd[0], cidx, wgt, vn, bp, bs, bt)
+        with scope("solve"):
+            # Marquardt damping with a diagonal floor
+            d = torch.diagonal(JtJ)
+            d = torch.maximum(d, 1e-3 * torch.max(d))
+            M = JtJ + lam * torch.diag(d) + 1e-8 * eye
+            L, info = torch.linalg.cholesky_ex(M)
+            delta = -torch.cholesky_solve(Jtr[:, None], L)[:, 0]
+            # a failed factorization yields NaN, as the reference's does: the
+            # trial cost is NaN and the step is rejected
+            delta = torch.where(info == 0, delta,
+                                torch.full_like(delta, math.nan))
+            if freeze_shape:
+                delta = torch.cat([delta, torch.zeros(K_all, dtype=dtype,
+                                                      device=dev)])
+            trial = _retract(theta, delta, Rg, parents)
+        with scope("trial"):
+            with scope("lbs"):
+                trial_fwd = _forward(ctx, parents, trial, use_jsr)
+            trial_cost = cost_at(trial, trial_fwd[0], cidx, wgt, vn, bp, bs,
+                                 bt)
 
-        accept = trial_cost < cost
-        rel = torch.abs(cost - trial_cost) / torch.clamp(cost, min=1e-12)
-        small = (rel < function_tolerance) & corr_stable
-        small_cnt = torch.where(small, small_cnt + 1, 0)
-        lam = torch.where(accept, torch.clamp(lam * 0.33, min=1e-7),
-                          torch.clamp(lam * 6.0, max=1e6))
-        accepted = accepted + accept.to(torch.int32)
-        cost = torch.where(accept, trial_cost, cost)
-        need_lin, stop = torch.stack([accept, small_cnt >= 2]).tolist()
+            accept = trial_cost < cost
+            rel = torch.abs(cost - trial_cost) / torch.clamp(cost, min=1e-12)
+            small = (rel < function_tolerance) & corr_stable
+            small_cnt = torch.where(small, small_cnt + 1, 0)
+            lam = torch.where(accept, torch.clamp(lam * 0.33, min=1e-7),
+                              torch.clamp(lam * 6.0, max=1e6))
+            accepted = accepted + accept.to(torch.int32)
+            cost = torch.where(accept, trial_cost, cost)
+        with scope("sync"):
+            need_lin, stop = torch.stack([accept, small_cnt >= 2]).tolist()
         if need_lin:
             theta, fwd = trial, trial_fwd
         if stop:
@@ -485,8 +504,9 @@ def fit_refine(ctx: FitContext, parents: Tuple[int, ...],
     occ_margin = 0.2
 
     NP = num_parts or len(parents)
-    data_pts, data_part, match = correspond.matcher(
-        data_pts, data_part, ctx.model_part, NP, chunk=chunk)
+    with scope("plan"):
+        data_pts, data_part, match = correspond.matcher(
+            data_pts, data_part, ctx.model_part, NP, chunk=chunk)
     N = data_pts.shape[0]
     J_all = len(parents)
     D_all = 3 + 3 * J_all + ctx.lbs.shapedirs.shape[2]
@@ -505,74 +525,85 @@ def fit_refine(ctx: FitContext, parents: Tuple[int, ...],
         """Surface correspondence, robust weights, the mass-lumped gram,
         the exact gradient and the cost, all at the current iterate."""
         x, shaped, j_init, Rg, tg, A = fwd
-        vn = torch.einsum("pab,pb->pa", A, n_rest)
-        vn = vn / torch.linalg.norm(vn, dim=-1, keepdim=True).clamp(min=1e-12)
-        if enable_occlusion:
-            vis = vn[:, 2] < occ_margin
-            front = occ_margin
-        else:
-            vis = torch.ones(P, dtype=torch.bool, device=dev)
-            front = None
-        if ctx.cand_mask is not None:
-            vis = vis & ctx.cand_mask
-        st = match(x, vis, wild, wild_gate2)
-        tri_idx, bary, fnrm, valid = surface_correspond(
-            data_pts, st.corr, x, ctx.faces, ring_faces, front_margin=front)
-        # Huber IRLS plus a hard trim on the current match distances; the
-        # robust scale is the reference's sort-free one-round trimmed mean
-        # (mean |r|, then the mean over |r| < 3 x that), not a median
-        r_cur = surf(x, tri_idx, bary) - data_pts
-        dist = torch.sqrt(torch.sum(r_cur * r_cur, -1) + 1e-16)
-        vw = valid.to(dtype)
-        nv = torch.clamp(torch.sum(vw), min=1.0)
-        m0 = torch.sum(dist * vw) / nv
-        keep = vw * (dist < 3.0 * m0).to(dtype)
-        med = torch.sum(dist * keep) / torch.clamp(torch.sum(keep), min=1.0)
-        med = torch.where(med > 0, med, 1e-3)
-        delta_h = torch.clamp(huber_k * med, min=2e-4)
-        wgt = torch.where(valid, torch.clamp(delta_h / dist, max=1.0), 0.0)
-        wgt = torch.where(dist > trim_k * med, 0.0, wgt)
-        n_matched = torch.sum((wgt > 0).to(dtype))
-        scale = torch.sqrt(torch.clamp(n_matched, min=1.0)) / 15.0
-        bp = beta_pose * scale
-        bs = beta_shape * scale
+        with scope("vis"):
+            vn = torch.einsum("pab,pb->pa", A, n_rest)
+            vn = vn / torch.linalg.norm(vn, dim=-1, keepdim=True).clamp(
+                min=1e-12)
+            if enable_occlusion:
+                vis = vn[:, 2] < occ_margin
+                front = occ_margin
+            else:
+                vis = torch.ones(P, dtype=torch.bool, device=dev)
+                front = None
+            if ctx.cand_mask is not None:
+                vis = vis & ctx.cand_mask
+        with scope("nn"):
+            st = match(x, vis, wild, wild_gate2)
+        with scope("surface"):
+            tri_idx, bary, fnrm, valid = surface_correspond(
+                data_pts, st.corr, x, ctx.faces, ring_faces,
+                front_margin=front)
+        with scope("weights"):
+            # Huber IRLS plus a hard trim on the current match distances; the
+            # robust scale is the reference's sort-free one-round trimmed mean
+            # (mean |r|, then the mean over |r| < 3 x that), not a median
+            r_cur = surf(x, tri_idx, bary) - data_pts
+            dist = torch.sqrt(torch.sum(r_cur * r_cur, -1) + 1e-16)
+            vw = valid.to(dtype)
+            nv = torch.clamp(torch.sum(vw), min=1.0)
+            m0 = torch.sum(dist * vw) / nv
+            keep = vw * (dist < 3.0 * m0).to(dtype)
+            med = torch.sum(dist * keep) / torch.clamp(torch.sum(keep),
+                                                       min=1.0)
+            med = torch.where(med > 0, med, 1e-3)
+            delta_h = torch.clamp(huber_k * med, min=2e-4)
+            wgt = torch.where(valid, torch.clamp(delta_h / dist, max=1.0), 0.0)
+            wgt = torch.where(dist > trim_k * med, 0.0, wgt)
+            n_matched = torch.sum((wgt > 0).to(dtype))
+            scale = torch.sqrt(torch.clamp(n_matched, min=1.0)) / 15.0
+            bp = beta_pose * scale
+            bs = beta_shape * scale
 
-        cost = cost_at(theta, x, tri_idx, bary, fnrm, wgt, bp, bs)
-        Jm = _icp_jacobian(ctx, parents, theta, fwd)               # [P,3,D]
-        rpl = torch.sum(fnrm * r_cur, -1)                          # [N]
-        # Normal equations without the data axis:
-        #   gradient (exact):  J^T r = sum_p Jm[p]^T G[p],
-        #     G[p] = sum_n w_n b_np (wpt^2 r_n + wpl^2 n_f rpl_n)
-        #   gram (mass-lumped): sum_p Jm[p]^T W_p Jm[p],
-        #     W_p = wpt^2 m_p I + wpl^2 sum_n w_n b_np n_f n_f^T
-        # every per-datum sum reduces through ONE [3N, 13] index_add_
-        nx, ny, nz = fnrm[:, 0], fnrm[:, 1], fnrm[:, 2]
-        nn6 = torch.stack([nx * nx, ny * ny, nz * nz, nx * ny, nx * nz,
-                           ny * nz], dim=-1)                       # [N,6]
-        payload = torch.cat([torch.ones_like(wgt)[:, None], r_cur,
-                             fnrm * rpl[:, None], nn6], dim=-1)    # [N,13]
-        bw = (bary * wgt[:, None]).reshape(-1)                     # [3N]
-        acc = torch.zeros((P, 13), dtype=dtype, device=dev).index_add_(
-            0, tri_idx.reshape(-1),
-            bw[:, None] * payload.repeat_interleave(3, dim=0))     # [P,13]
-        m_pt = acc[:, 0]
-        G = w_pt ** 2 * acc[:, 1:4] + w_pl ** 2 * acc[:, 4:7]      # [P,3]
-        a_, b_, c_, d_, e_, f_ = acc[:, 7:13].unbind(-1)
-        Npp = torch.stack([a_, d_, e_, d_, b_, f_, e_, f_, c_],
-                          dim=-1).reshape(-1, 3, 3)                # [P,3,3]
-        eye3 = torch.eye(3, dtype=dtype, device=dev)
-        W_p = w_pt ** 2 * m_pt[:, None, None] * eye3 + w_pl ** 2 * Npp
-        JmW = torch.einsum("pab,pbd->pad", W_p, Jm)                # [P,3,D]
-        Jflat = Jm.reshape(-1, D_all)
-        JtJ = Jflat.T @ JmW.reshape(-1, D_all)
-        Jtr = Jflat.T @ G.reshape(-1)
-        pJtJ, pJtr = _prior_terms(ctx, parents, theta, Rg, bp, bs)
-        corr_stable = torch.all(st.corr == corr_prev)
+        with scope("cost"):
+            cost = cost_at(theta, x, tri_idx, bary, fnrm, wgt, bp, bs)
+        with scope("jacobian"):
+            Jm = _icp_jacobian(ctx, parents, theta, fwd)           # [P,3,D]
+        with scope("gram"):
+            rpl = torch.sum(fnrm * r_cur, -1)                          # [N]
+            # Normal equations without the data axis:
+            #   gradient (exact):  J^T r = sum_p Jm[p]^T G[p],
+            #     G[p] = sum_n w_n b_np (wpt^2 r_n + wpl^2 n_f rpl_n)
+            #   gram (mass-lumped): sum_p Jm[p]^T W_p Jm[p],
+            #     W_p = wpt^2 m_p I + wpl^2 sum_n w_n b_np n_f n_f^T
+            # every per-datum sum reduces through ONE [3N, 13] index_add_
+            nx, ny, nz = fnrm[:, 0], fnrm[:, 1], fnrm[:, 2]
+            nn6 = torch.stack([nx * nx, ny * ny, nz * nz, nx * ny, nx * nz,
+                               ny * nz], dim=-1)                       # [N,6]
+            payload = torch.cat([torch.ones_like(wgt)[:, None], r_cur,
+                                 fnrm * rpl[:, None], nn6], dim=-1)    # [N,13]
+            bw = (bary * wgt[:, None]).reshape(-1)                     # [3N]
+            acc = torch.zeros((P, 13), dtype=dtype, device=dev).index_add_(
+                0, tri_idx.reshape(-1),
+                bw[:, None] * payload.repeat_interleave(3, dim=0))     # [P,13]
+            m_pt = acc[:, 0]
+            G = w_pt ** 2 * acc[:, 1:4] + w_pl ** 2 * acc[:, 4:7]      # [P,3]
+            a_, b_, c_, d_, e_, f_ = acc[:, 7:13].unbind(-1)
+            Npp = torch.stack([a_, d_, e_, d_, b_, f_, e_, f_, c_],
+                              dim=-1).reshape(-1, 3, 3)            # [P,3,3]
+            eye3 = torch.eye(3, dtype=dtype, device=dev)
+            W_p = w_pt ** 2 * m_pt[:, None, None] * eye3 + w_pl ** 2 * Npp
+            JmW = torch.einsum("pab,pbd->pad", W_p, Jm)            # [P,3,D]
+            Jflat = Jm.reshape(-1, D_all)
+            JtJ = Jflat.T @ JmW.reshape(-1, D_all)
+            Jtr = Jflat.T @ G.reshape(-1)
+            pJtJ, pJtr = _prior_terms(ctx, parents, theta, Rg, bp, bs)
+            corr_stable = torch.all(st.corr == corr_prev)
         return (JtJ + pJtJ, Jtr + pJtr, cost, n_matched, st.corr, tri_idx,
                 bary, fnrm, wgt, torch.stack([bp, bs]), corr_stable)
 
     theta = theta0
-    fwd = _forward(ctx, parents, theta0, use_jsr)
+    with scope("lbs"):
+        fwd = _forward(ctx, parents, theta0, use_jsr)
     lam = f(1e-4)
     accepted = torch.zeros((), dtype=torch.int32, device=dev)
     small_cnt = torch.zeros((), dtype=torch.int32, device=dev)
@@ -593,30 +624,34 @@ def fit_refine(ctx: FitContext, parents: Tuple[int, ...],
          corr_stable) = lin
         bp, bs = b2[0], b2[1]
         Rg = fwd[3]
-        d = torch.diagonal(JtJ)
-        d = torch.maximum(d, 1e-3 * torch.max(d))
-        M = JtJ + lam * torch.diag(d) + 1e-8 * eye
-        if freeze_shape and nk > 0:
-            # in-tracker refine: pin the shape block of the FULL tangent
-            # with a dominant diagonal penalty, so delta_w ~ 0
-            M = M + torch.diag(fmask * (1e6 * torch.max(d)))
-        L, info = torch.linalg.cholesky_ex(M)
-        delta = -torch.cholesky_solve(Jtr[:, None], L)[:, 0]
-        delta = torch.where(info == 0, delta, math.nan)
-        trial = _retract(theta, delta, Rg, parents)
-        trial_fwd = _forward(ctx, parents, trial, use_jsr)
-        trial_cost = cost_at(trial, trial_fwd[0], tri_idx, bary, fnrm, wgt,
-                             bp, bs)
+        with scope("solve"):
+            d = torch.diagonal(JtJ)
+            d = torch.maximum(d, 1e-3 * torch.max(d))
+            M = JtJ + lam * torch.diag(d) + 1e-8 * eye
+            if freeze_shape and nk > 0:
+                # in-tracker refine: pin the shape block of the FULL tangent
+                # with a dominant diagonal penalty, so delta_w ~ 0
+                M = M + torch.diag(fmask * (1e6 * torch.max(d)))
+            L, info = torch.linalg.cholesky_ex(M)
+            delta = -torch.cholesky_solve(Jtr[:, None], L)[:, 0]
+            delta = torch.where(info == 0, delta, math.nan)
+            trial = _retract(theta, delta, Rg, parents)
+        with scope("trial"):
+            with scope("lbs"):
+                trial_fwd = _forward(ctx, parents, trial, use_jsr)
+            trial_cost = cost_at(trial, trial_fwd[0], tri_idx, bary, fnrm, wgt,
+                                 bp, bs)
 
-        accept = trial_cost < cost
-        rel = torch.abs(cost - trial_cost) / torch.clamp(cost, min=1e-20)
-        small = (rel < function_tolerance) & corr_stable
-        small_cnt = torch.where(small, small_cnt + 1, 0)
-        lam = torch.where(accept, torch.clamp(lam * 0.33, min=1e-9),
-                          torch.clamp(lam * 6.0, max=1e6))
-        accepted = accepted + accept.to(torch.int32)
-        cost = torch.where(accept, trial_cost, cost)
-        need_lin, stop = torch.stack([accept, small_cnt >= 2]).tolist()
+            accept = trial_cost < cost
+            rel = torch.abs(cost - trial_cost) / torch.clamp(cost, min=1e-20)
+            small = (rel < function_tolerance) & corr_stable
+            small_cnt = torch.where(small, small_cnt + 1, 0)
+            lam = torch.where(accept, torch.clamp(lam * 0.33, min=1e-9),
+                              torch.clamp(lam * 6.0, max=1e6))
+            accepted = accepted + accept.to(torch.int32)
+            cost = torch.where(accept, trial_cost, cost)
+        with scope("sync"):
+            need_lin, stop = torch.stack([accept, small_cnt >= 2]).tolist()
         if need_lin:
             theta, fwd = trial, trial_fwd
         if stop:

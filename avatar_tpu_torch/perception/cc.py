@@ -14,6 +14,8 @@ from typing import Callable, Optional
 
 import torch
 
+from avatar_tpu_torch.profiling import scope
+
 _GATES = ((1, 0), (-1, 0), (0, 1), (0, -1))
 
 
@@ -56,7 +58,8 @@ def connected_components(active: torch.Tensor,
         gate_masks.append(ok)
 
     pad = torch.full((H * W + 1,), big, dtype=torch.int32, device=dev)
-    changed = bool(active.any())
+    with scope("sync"):
+        changed = bool(active.any())
     it = 0
     while changed and it < max_iters:
         new = label
@@ -67,7 +70,8 @@ def connected_components(active: torch.Tensor,
         pad[:-1] = newf
         newf = torch.minimum(newf, pad[torch.clamp(newf, max=big).long()])
         new = newf.reshape(H, W)
-        changed = bool((new != label).any())
+        with scope("sync"):
+            changed = bool((new != label).any())
         label = new
         it += 1
     return torch.where(active, label, -1)

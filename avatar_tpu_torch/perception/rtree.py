@@ -234,8 +234,7 @@ def suppress_part_nonmax(strided: torch.Tensor, com_pre: torch.Tensor,
 class RTree:
     """Forest API mirroring the reference class (RTree.h:13-183): loading,
     ``predict_best``, ``predict`` and ``post_process`` on ``device``,
-    training and export.  Reading the reference's RTREE_V2/V3 trainer
-    state (``load_trainer_checkpoint``) is not ported."""
+    training and export."""
 
     def __init__(self, path_or_parts, device: str | torch.device = "cuda"):
         self.device = get_device(device)
@@ -256,6 +255,23 @@ class RTree:
         if os.path.exists(pm_path):
             self.part_map, _, self.partmap_type = formats.read_partmap(pm_path)
         return True
+
+    def load_trainer_checkpoint(self, path: str):
+        """Load a reference RTREE_V2/V3 resumable trainer checkpoint
+        (RTree.cpp:1964-2130, 2649-2779) as a usable forest.  Frontier
+        nodes not yet split get uniform leaf distributions.  Returns the
+        parsed state (data source, sample lists, level info) for
+        inspection or conversion."""
+        with open(path, "rb") as f:
+            head = f.read(9)
+        if head == b"RTREE_V3 ":
+            state = formats.read_rtree_v3(path)
+        elif head == b"RTREE_V2 ":
+            state = formats.read_rtree_v2(path)
+        else:
+            raise ValueError(f"{path}: not an RTREE_V2/V3 checkpoint")
+        self.set_forest(formats.trainer_checkpoint_to_forest(state))
+        return state
 
     def export_file(self, path: str) -> bool:
         formats.write_srtr(path, self.forest)

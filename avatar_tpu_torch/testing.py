@@ -10,6 +10,8 @@ copies against the originals.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -186,6 +188,53 @@ def synthetic_model(detail: int = 1, n_keys: int = 10, seed: int = 7,
                                   device=device) if with_prior else None)
     return AvatarModel(arrays=arrays, pose_prior=prior, dtype=dtype,
                        device=device)
+
+
+def synthetic_pose_sequence(path: str, n_frames: int = 64, n_joints: int = 24,
+                            seed: int = 13) -> None:
+    """Write a mocap-style .dat/.txt pose bank of smooth random poses."""
+    from avatar_tpu_torch.core import rotation
+    from avatar_tpu_torch.core.sequence import AvatarPoseSequence
+
+    rng = np.random.default_rng(seed)
+    # smooth trajectories: a random walk in axis-angle space
+    aa = np.cumsum(rng.normal(0, 0.02, size=(n_frames, n_joints, 3)), axis=0)
+    aa += rng.normal(0, 0.1, size=(1, n_joints, 3))
+    aa[:, 0, :] = 0.0
+    pos = np.cumsum(rng.normal(0, 0.01, size=(n_frames, 3)), axis=0)
+    pos += np.array([0.0, 0.0, 2.8])
+    # quaternions (x, y, z, w), in float32 as the reference computes them
+    mats = rotation.so3_exp(torch.as_tensor(
+        aa.reshape(-1, 3), dtype=torch.float32)).reshape(
+        n_frames, n_joints, 3, 3)
+    quats = rotation.mat_to_quat(mats).numpy()
+    AvatarPoseSequence.write(path, pos, quats)
+
+
+def write_synthetic_model_dir(out_dir: str, detail: int = 1, n_keys: int = 10,
+                              seed: int = 7) -> str:
+    """Materialize model.npz + pose_prior.txt in ``out_dir`` (the files
+    ``AvatarModel(model_dir)`` loads)."""
+    os.makedirs(out_dir, exist_ok=True)
+    arrays = synthetic_arrays(detail, n_keys, seed)
+    J = arrays["parent"].shape[0]
+    kintree = np.stack([
+        np.where(arrays["parent"] < 0, np.uint32(0xFFFFFFFF),
+                 arrays["parent"].astype(np.uint32)),
+        np.arange(J, dtype=np.uint32),
+    ])
+    np.savez(
+        os.path.join(out_dir, "model.npz"),
+        v_template=arrays["v_template"],
+        kintree_table=kintree,
+        f=arrays["faces"].astype(np.uint32),
+        J_regressor=arrays["joint_reg"],
+        weights=arrays["weights"],
+        shapedirs=arrays["shapedirs"],
+    )
+    synthetic_pose_prior(J, seed=seed + 1, device="cpu").save(
+        os.path.join(out_dir, "pose_prior.txt"))
+    return out_dir
 
 
 def synthetic_nn_inputs(n_rows: int, detail: int = 6, n_wild: int = 992,

@@ -27,6 +27,7 @@ import numpy as np
 from avatar_tpu_torch.core.model import Avatar, AvatarModel
 from avatar_tpu_torch.optim.optimizer import AvatarOptimizer
 from avatar_tpu_torch.perception.bgsub import BGSubtractor
+from avatar_tpu_torch.profiling import FRAME_SCOPE, scope
 from avatar_tpu_torch.utils import StageTimer
 
 
@@ -152,12 +153,17 @@ class Tracker:
         labels_override: optional [H, W] uint8 part labels (255 =
           background) in place of forest inference.
         """
+        with scope(FRAME_SCOPE):
+            return self._track(xyz_map, labels_override)
+
+    def _track(self, xyz_map, labels_override) -> TrackResult:
+        """The frame, its stages under the fused tracker's scope names."""
         c = self.config
         H, W = xyz_map.shape[:2]
         depth = np.ascontiguousarray(xyz_map[..., 2]).copy()
 
         # background subtraction (demo.cpp:179-193)
-        with self.timer.stage("bg_subtraction"):
+        with self.timer.stage("bg_subtraction"), scope("bgsub"):
             if self.bgsub is not None:
                 sub = self.bgsub.run(xyz_map)
                 depth[sub >= 254] = 0.0
@@ -171,18 +177,20 @@ class Tracker:
                 part_mask = np.where(depth > 0, labels_override,
                                      np.uint8(255))
             elif self.rtree is not None:
-                part_mask = self.rtree.predict_best(
-                    depth, interval=c.rtree_interval, top_left=tl,
-                    bot_right=br)
-                part_mask = self.rtree.post_process(
-                    part_mask, self.com_pre, interval=c.rtree_interval,
-                    top_left=tl, bot_right=br,
-                    dist_to_pre_weight=c.dist_to_pre_weight)
+                with scope("forest_walk"):
+                    part_mask = self.rtree.predict_best(
+                        depth, interval=c.rtree_interval, top_left=tl,
+                        bot_right=br)
+                with scope("blob_suppress"):
+                    part_mask = self.rtree.post_process(
+                        part_mask, self.com_pre, interval=c.rtree_interval,
+                        top_left=tl, bot_right=br,
+                        dist_to_pre_weight=c.dist_to_pre_weight)
             else:
                 raise ValueError("need an rtree or labels_override")
 
         # labelled cloud at the data stride (demo.cpp:215-250)
-        with self.timer.stage("gather"):
+        with self.timer.stage("gather"), scope("glue/sample"):
             iv = c.data_interval
             ys = np.arange(tl[1], br[1] + 1, iv)
             xs = np.arange(tl[0], br[0] + 1, iv)
@@ -218,7 +226,7 @@ class Tracker:
             reinitialized = True
 
         # fit (demo.cpp:267-268)
-        with self.timer.stage("optimize"):
+        with self.timer.stage("optimize"), scope("fit"):
             info = self.optimizer.optimize(pts, labels, icp_iters=icp_iters)
 
         res = TrackResult(ok=True, reinitialized=reinitialized,

@@ -21,12 +21,16 @@ which runs the same NN kernel).
 
 Top-k compactions use ``torch.argsort(-score, stable=True)[:k]``, which
 orders ties toward the lower index exactly as ``lax.top_k`` does (the hash
-noise has only 65536 levels, so ties occur).  Not ported yet: the batch
-and async paths, ``warmup`` and the metrics log.
+noise has only 65536 levels, so ties occur).  The stages carry the
+reference's scope names (``profiling.scope``: ``bgsub``, ``forest_walk``,
+``blob_suppress``, ``fit``, ``refine``; the rest of a frame under
+``glue/...``), below one ``frame`` root per pass through the pipeline.  Not
+ported: the batch and async paths, which amortize a remote link.
 """
 
 from __future__ import annotations
 
+import json
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -47,6 +51,7 @@ from avatar_tpu_torch.perception.partgroups import (SMPL24_GROUP_CHAIN_ROOT,
 from avatar_tpu_torch.perception.rtree import (TreeTensors,
                                                suppress_part_nonmax,
                                                walk_pixels)
+from avatar_tpu_torch.profiling import FRAME_SCOPE, scope
 from avatar_tpu_torch.render.raster import project_points
 from avatar_tpu_torch.tracking import TrackerConfig, TrackResult
 from avatar_tpu_torch.utils import StageTimer
@@ -80,7 +85,8 @@ class HostDiag(NamedTuple):
 
 def unpack_diag(vec: torch.Tensor, num_parts: int) -> HostDiag:
     """The packed diagnostics vector, read with one device->host copy."""
-    a = vec.cpu().numpy()
+    with scope("diag_read"):
+        a = vec.cpu().numpy()
     G = num_parts
     return HostDiag(
         n_points=int(a[0]), cost=float(a[1]), n_matched=int(a[2]),
@@ -202,19 +208,21 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
         return torch.stack([(xs - cx) * d_s / fx, (ys - cy) * d_s / fy, d_s],
                            dim=-1)
 
-    xyz_s = strided_xyz(depth)                          # [Hs, Ws, 3]
-    depth_s = xyz_s[..., 2]
-    dtype = depth_s.dtype
-    Hs, Ws = depth_s.shape
+    with scope("glue/xyz"):
+        xyz_s = strided_xyz(depth)                      # [Hs, Ws, 3]
+        depth_s = xyz_s[..., 2]
+        dtype = depth_s.dtype
+        Hs, Ws = depth_s.shape
 
     if use_bgsub:
-        bg_s = strided_xyz(bg_depth)
-        # theta0.p is in model space = camera space with y negated, so its
-        # z is camera depth
-        fg = _bg_subtract(xyz_s, bg_s, nn_t, nb_t, min_cc_pts,
-                          body_z=theta0.p[2], body_gate=body_gate)
-        depth_s = torch.where(fg, depth_s, 0.0)
-        xyz_s = torch.where(fg[..., None], xyz_s, 0.0)
+        with scope("bgsub"):
+            bg_s = strided_xyz(bg_depth)
+            # theta0.p is in model space = camera space with y negated, so
+            # its z is camera depth
+            fg = _bg_subtract(xyz_s, bg_s, nn_t, nb_t, min_cc_pts,
+                              body_z=theta0.p[2], body_gate=body_gate)
+            depth_s = torch.where(fg, depth_s, 0.0)
+            xyz_s = torch.where(fg[..., None], xyz_s, 0.0)
 
     hard_overflow = torch.zeros((), dtype=torch.float32, device=dev)
     if use_forest:
@@ -297,55 +305,58 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
             keep = (votes > 0) & (conf >= conf_thresh[best.long()])
             return torch.where(keep, best, bg_lab), zero
 
-        if seg_window is not None:
-            # walk only inside a window centred on the previous frame's
-            # part centres
-            wh, ww = seg_window
-            has_com = com_pre[0] >= 0
-            n_com = torch.clamp(torch.sum(has_com.to(dtype)), min=1.0)
-            ccx = torch.sum(torch.where(has_com, com_pre[0], 0.0)) / n_com
-            ccy = torch.sum(torch.where(has_com, com_pre[1], 0.0)) / n_com
-            any_com = torch.any(has_com)
-            ccx = torch.where(any_com, ccx / seg_stride, Ws / 2.0)
-            ccy = torch.where(any_com, ccy / seg_stride, Hs / 2.0)
-            oy = torch.clamp(ccy.to(torch.int32) - wh // 2, 0, Hs - wh)
-            ox = torch.clamp(ccx.to(torch.int32) - ww // 2, 0, Ws - ww)
-            oy, ox = torch.stack([oy, ox]).tolist()
-            region, roy, rox, rw = depth_s[oy:oy + wh, ox:ox + ww], oy, ox, ww
-        else:
-            region, roy, rox, rw = depth_s, 0, 0, Ws
-        # compact the region's foreground into a static bucket (overflow
-        # drops pixels by the hash-noise tie-break) and walk only those
-        WALK_K = 3072 if seg_window is not None else 4096
-        rflat = region.reshape(-1)
-        rfg = rflat > 0
-        tie = _hash_noise(rflat.shape[0], 2654435761, dev)
-        sel = _top_k(rfg.to(torch.float32) * 2.0 + tie,
-                     min(WALK_K, rflat.shape[0]))
-        fg_sel = rfg[sel]
-        z_sel = rflat[sel]
-        ys_sel = roy + sel // rw
-        xs_sel = rox + sel % rw
-        if seg_window is not None:
-            # probes read the window slab in window-local coordinates
-            Hr = region.shape[0]
-            lab_sel, hard_overflow = walk_set(
-                sel // rw, sel % rw, z_sel, fg_sel, rflat, (Hr, rw),
-                (0, 0), (rw - 1, Hr - 1))
-            Hl, Wl = seg_window
-            pos = torch.where(fg_sel, sel, Hl * Wl)
-            lab_oy, lab_ox = roy, rox
-        else:
-            lab_sel, hard_overflow = walk_set(
-                ys_sel, xs_sel, z_sel, fg_sel, depth_s.reshape(-1), (Hs, Ws),
-                (0, 0), (Ws - 1, Hs - 1))
-            Hl, Wl = Hs, Ws
-            pos = torch.where(fg_sel, ys_sel * Ws + xs_sel, Hs * Ws)
-            lab_oy, lab_ox = 0, 0
-        labels_s = torch.full((Hl * Wl + 1,), _BG, dtype=torch.uint8,
-                              device=dev).index_put_((pos,), lab_sel)[:-1]
-        labels_s = labels_s.reshape(Hl, Wl)
-        depth_l = region if seg_window is not None else depth_s
+        with scope("forest_walk"):
+            if seg_window is not None:
+                # walk only inside a window centred on the previous frame's
+                # part centres
+                wh, ww = seg_window
+                has_com = com_pre[0] >= 0
+                n_com = torch.clamp(torch.sum(has_com.to(dtype)), min=1.0)
+                ccx = torch.sum(torch.where(has_com, com_pre[0], 0.0)) / n_com
+                ccy = torch.sum(torch.where(has_com, com_pre[1], 0.0)) / n_com
+                any_com = torch.any(has_com)
+                ccx = torch.where(any_com, ccx / seg_stride, Ws / 2.0)
+                ccy = torch.where(any_com, ccy / seg_stride, Hs / 2.0)
+                oy = torch.clamp(ccy.to(torch.int32) - wh // 2, 0, Hs - wh)
+                ox = torch.clamp(ccx.to(torch.int32) - ww // 2, 0, Ws - ww)
+                with scope("sync"):
+                    oy, ox = torch.stack([oy, ox]).tolist()
+                region = depth_s[oy:oy + wh, ox:ox + ww]
+                roy, rox, rw = oy, ox, ww
+            else:
+                region, roy, rox, rw = depth_s, 0, 0, Ws
+            # compact the region's foreground into a static bucket (overflow
+            # drops pixels by the hash-noise tie-break) and walk only those
+            WALK_K = 3072 if seg_window is not None else 4096
+            rflat = region.reshape(-1)
+            rfg = rflat > 0
+            tie = _hash_noise(rflat.shape[0], 2654435761, dev)
+            sel = _top_k(rfg.to(torch.float32) * 2.0 + tie,
+                         min(WALK_K, rflat.shape[0]))
+            fg_sel = rfg[sel]
+            z_sel = rflat[sel]
+            ys_sel = roy + sel // rw
+            xs_sel = rox + sel % rw
+            if seg_window is not None:
+                # probes read the window slab in window-local coordinates
+                Hr = region.shape[0]
+                lab_sel, hard_overflow = walk_set(
+                    sel // rw, sel % rw, z_sel, fg_sel, rflat, (Hr, rw),
+                    (0, 0), (rw - 1, Hr - 1))
+                Hl, Wl = seg_window
+                pos = torch.where(fg_sel, sel, Hl * Wl)
+                lab_oy, lab_ox = roy, rox
+            else:
+                lab_sel, hard_overflow = walk_set(
+                    ys_sel, xs_sel, z_sel, fg_sel, depth_s.reshape(-1),
+                    (Hs, Ws), (0, 0), (Ws - 1, Hs - 1))
+                Hl, Wl = Hs, Ws
+                pos = torch.where(fg_sel, ys_sel * Ws + xs_sel, Hs * Ws)
+                lab_oy, lab_ox = 0, 0
+            labels_s = torch.full((Hl * Wl + 1,), _BG, dtype=torch.uint8,
+                                  device=dev).index_put_((pos,), lab_sel)[:-1]
+            labels_s = labels_s.reshape(Hl, Wl)
+            depth_l = region if seg_window is not None else depth_s
     else:
         labels_s = labels_full[::seg_stride, ::seg_stride]
         labels_s = torch.where(depth_s > 0, labels_s,
@@ -353,152 +364,165 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
         lab_oy, lab_ox = 0, 0
         depth_l = depth_s
 
-    model_com = torch.full((num_parts, 5), -1.0, dtype=dtype, device=dev)
-    if use_forest:
-        # per-part model centroids at theta0 (the host-side limb recovery's
-        # mis-aim test)
-        x_prev0 = _forward(ctx, parents, theta0, use_jsr)[0]
-        proj0 = project_points(x_prev0, fx, fy, cx, cy)
-        gacc = torch.zeros((num_parts + 1, 6), dtype=dtype,
-                           device=dev).index_add_(
-            0, torch.clamp(ctx.model_part, 0, num_parts).long(),
-            torch.cat([proj0, x_prev0, torch.ones_like(proj0[:, :1])], 1))
-        gn = torch.clamp(gacc[:num_parts, 5:], min=1.0)
-        model_com = torch.where(gacc[:num_parts, 5:] > 0,
-                                gacc[:num_parts, :5] / gn, -1.0)
+    with scope("glue/centroids"):
+        model_com = torch.full((num_parts, 5), -1.0, dtype=dtype, device=dev)
+        if use_forest:
+            # per-part model centroids at theta0 (the host-side limb
+            # recovery's mis-aim test)
+            x_prev0 = _forward(ctx, parents, theta0, use_jsr)[0]
+            proj0 = project_points(x_prev0, fx, fy, cx, cy)
+            gacc = torch.zeros((num_parts + 1, 6), dtype=dtype,
+                               device=dev).index_add_(
+                0, torch.clamp(ctx.model_part, 0, num_parts).long(),
+                torch.cat([proj0, x_prev0, torch.ones_like(proj0[:, :1])], 1))
+            gn = torch.clamp(gacc[:num_parts, 5:], min=1.0)
+            model_com = torch.where(gacc[:num_parts, 5:] > 0,
+                                    gacc[:num_parts, :5] / gn, -1.0)
 
-    if use_render_labels:
-        # splat the previous pose's vertices into a z-buffer on the label
-        # grid (scatter-min of (depth << 8 | part) + 3x3 min-pool) and trust
-        # the splatted label where the measured depth agrees
-        Hl, Wl = labels_s.shape
-        zq = torch.clamp(x_prev0[:, 2] / 20.0 * float(1 << 17), 1.0,
-                         float((1 << 17) - 1)).to(torch.int32)
-        key = (zq << 8) | ctx.model_part.to(torch.int32)
-        px = torch.round(proj0[:, 0]).to(torch.int32) - lab_ox
-        py = torch.round(proj0[:, 1]).to(torch.int32) - lab_oy
-        ok_v = (px >= 0) & (px < Wl) & (py >= 0) & (py < Hl) & (
-            x_prev0[:, 2] > 1e-6)
-        flat = torch.where(ok_v, py * Wl + px, Hl * Wl).long()
-        zbuf = torch.full((Hl * Wl + 1,), _IMAX, dtype=torch.int32,
-                          device=dev).scatter_reduce(
-            0, flat, key, "amin", include_self=True)[:-1].reshape(Hl, Wl)
-        zp = torch.full((Hl + 2, Wl + 2), _IMAX, dtype=torch.int32,
-                        device=dev)
-        zp[1:-1, 1:-1] = zbuf
-        pooled = zbuf
-        for dy in (0, 1, 2):
-            for dx in (0, 1, 2):
-                if dy == 1 and dx == 1:
-                    continue
-                pooled = torch.minimum(pooled, zp[dy:dy + Hl, dx:dx + Wl])
-        hit = pooled != _IMAX
-        rl = torch.where(hit, (pooled & 0xFF).to(torch.uint8),
-                         torch.full_like(labels_s, _BG))
-        rd = torch.where(hit, (pooled >> 8).to(dtype) *
-                         (20.0 / float(1 << 17)), 0.0)
-        agree = (depth_l > 0) & hit & (torch.abs(depth_l - rd) < render_tau)
-        labels_s = torch.where(agree, rl, labels_s)
+    with scope("glue/splat"):
+        if use_render_labels:
+            # splat the previous pose's vertices into a z-buffer on the
+            # label grid (scatter-min of (depth << 8 | part) + 3x3 min-pool)
+            # and trust the splatted label where the measured depth agrees
+            Hl, Wl = labels_s.shape
+            zq = torch.clamp(x_prev0[:, 2] / 20.0 * float(1 << 17), 1.0,
+                             float((1 << 17) - 1)).to(torch.int32)
+            key = (zq << 8) | ctx.model_part.to(torch.int32)
+            px = torch.round(proj0[:, 0]).to(torch.int32) - lab_ox
+            py = torch.round(proj0[:, 1]).to(torch.int32) - lab_oy
+            ok_v = (px >= 0) & (px < Wl) & (py >= 0) & (py < Hl) & (
+                x_prev0[:, 2] > 1e-6)
+            flat = torch.where(ok_v, py * Wl + px, Hl * Wl).long()
+            zbuf = torch.full((Hl * Wl + 1,), _IMAX, dtype=torch.int32,
+                              device=dev).scatter_reduce(
+                0, flat, key, "amin", include_self=True)[:-1].reshape(Hl, Wl)
+            zp = torch.full((Hl + 2, Wl + 2), _IMAX, dtype=torch.int32,
+                            device=dev)
+            zp[1:-1, 1:-1] = zbuf
+            pooled = zbuf
+            for dy in (0, 1, 2):
+                for dx in (0, 1, 2):
+                    if dy == 1 and dx == 1:
+                        continue
+                    pooled = torch.minimum(pooled, zp[dy:dy + Hl, dx:dx + Wl])
+            hit = pooled != _IMAX
+            rl = torch.where(hit, (pooled & 0xFF).to(torch.uint8),
+                             torch.full_like(labels_s, _BG))
+            rd = torch.where(hit, (pooled >> 8).to(dtype) *
+                             (20.0 / float(1 << 17)), 0.0)
+            agree = (depth_l > 0) & hit & (
+                torch.abs(depth_l - rd) < render_tau)
+            labels_s = torch.where(agree, rl, labels_s)
 
     # blob suppression + CoM tracking on a 2x coarser grid; the origin keeps
     # the returned CoMs in full-grid pixel coordinates
     blob_sub = 2
     lab_c = labels_s[::blob_sub, ::blob_sub]
-    filt_c, com_new = suppress_part_nonmax(
-        lab_c, com_pre, num_parts, seg_stride * blob_sub, dist_to_pre_weight,
-        (lab_ox * seg_stride, lab_oy * seg_stride))
-    filt_up = filt_c.repeat_interleave(blob_sub, 0).repeat_interleave(
-        blob_sub, 1)[: labels_s.shape[0], : labels_s.shape[1]]
-    labels_s = torch.where(filt_up == labels_s, labels_s,
-                           torch.full_like(labels_s, _BG))
+    with scope("blob_suppress"):
+        filt_c, com_new = suppress_part_nonmax(
+            lab_c, com_pre, num_parts, seg_stride * blob_sub,
+            dist_to_pre_weight, (lab_ox * seg_stride, lab_oy * seg_stride))
+    with scope("glue/sample"):
+        filt_up = filt_c.repeat_interleave(blob_sub, 0).repeat_interleave(
+            blob_sub, 1)[: labels_s.shape[0], : labels_s.shape[1]]
+        labels_s = torch.where(filt_up == labels_s, labels_s,
+                               torch.full_like(labels_s, _BG))
 
-    # stride-sampled data cloud (inside the window when one is active)
-    if use_forest and seg_window is not None:
-        xyz_src = xyz_s[oy:oy + seg_window[0], ox:ox + seg_window[1]]
-    else:
-        xyz_src = xyz_s
-    lab_src = labels_s
-    sub_xyz = xyz_src[::data_substride, ::data_substride]
-    sub_lab = lab_src[::data_substride, ::data_substride]
-    pts = sub_xyz.reshape(-1, 3)
-    pts = torch.stack([pts[:, 0], -pts[:, 1], pts[:, 2]], dim=1)
-    parts = sub_lab.reshape(-1).to(torch.int32)
-    parts = torch.where((sub_xyz[..., 2] > 0).reshape(-1), parts, -1)
-    parts = torch.where(parts == _BG, -1, parts)
+        # stride-sampled data cloud (inside the window when one is active)
+        if use_forest and seg_window is not None:
+            xyz_src = xyz_s[oy:oy + seg_window[0], ox:ox + seg_window[1]]
+        else:
+            xyz_src = xyz_s
+        lab_src = labels_s
+        sub_xyz = xyz_src[::data_substride, ::data_substride]
+        sub_lab = lab_src[::data_substride, ::data_substride]
+        pts = sub_xyz.reshape(-1, 3)
+        pts = torch.stack([pts[:, 0], -pts[:, 1], pts[:, 2]], dim=1)
+        parts = sub_lab.reshape(-1).to(torch.int32)
+        parts = torch.where((sub_xyz[..., 2] > 0).reshape(-1), parts, -1)
+        parts = torch.where(parts == _BG, -1, parts)
 
-    def topk_samples(is_x, mult, k):
-        noise = _hash_noise(is_x.shape[0], mult, dev)
-        top = _top_k(is_x.to(torch.float32) * 2.0 + noise, k)
-        px_ = xyz_src.reshape(-1, 3)[top]
-        return top, torch.stack([px_[:, 0], -px_[:, 1], px_[:, 2]], dim=1)
+        def topk_samples(is_x, mult, k):
+            noise = _hash_noise(is_x.shape[0], mult, dev)
+            top = _top_k(is_x.to(torch.float32) * 2.0 + noise, k)
+            px_ = xyz_src.reshape(-1, 3)[top]
+            return top, torch.stack([px_[:, 0], -px_[:, 1], px_[:, 2]], dim=1)
 
-    if boost_n:
-        # extremity-dense samples of the boosted groups at full
-        # segmentation resolution
-        flat_lab = lab_src.reshape(-1).to(torch.int32)
-        is_b = torch.zeros(flat_lab.shape, dtype=torch.bool, device=dev)
-        for g in boost_groups:
-            is_b = is_b | (flat_lab == g)
-        is_b = is_b & (xyz_src[..., 2].reshape(-1) > 0)
-        top, bpts = topk_samples(is_b, 2654435761, boost_n)
-        pts = torch.cat([pts, bpts])
-        parts = torch.cat([parts, torch.where(is_b[top], flat_lab[top], -1)])
+        if boost_n:
+            # extremity-dense samples of the boosted groups at full
+            # segmentation resolution
+            flat_lab = lab_src.reshape(-1).to(torch.int32)
+            is_b = torch.zeros(flat_lab.shape, dtype=torch.bool, device=dev)
+            for g in boost_groups:
+                is_b = is_b | (flat_lab == g)
+            is_b = is_b & (xyz_src[..., 2].reshape(-1) > 0)
+            top, bpts = topk_samples(is_b, 2654435761, boost_n)
+            pts = torch.cat([pts, bpts])
+            parts = torch.cat([parts,
+                               torch.where(is_b[top], flat_lab[top], -1)])
 
-    if wild_n and use_forest:
-        # wildcard channel: foreground whose forest label was gated to
-        # background becomes label-free ICP support (part id == num_parts)
-        flat_lab_w = lab_src.reshape(-1).to(torch.int32)
-        is_w = (flat_lab_w == _BG) & (xyz_src[..., 2].reshape(-1) > 0)
-        topw, wpts = topk_samples(is_w, 2246822519, wild_n)
-        pts = torch.cat([pts, wpts])
-        parts = torch.cat([parts, torch.where(is_w[topw], num_parts, -1).to(
-            torch.int32)])
+        if wild_n and use_forest:
+            # wildcard channel: foreground whose forest label was gated to
+            # background becomes label-free ICP support (part id == num_parts)
+            flat_lab_w = lab_src.reshape(-1).to(torch.int32)
+            is_w = (flat_lab_w == _BG) & (xyz_src[..., 2].reshape(-1) > 0)
+            topw, wpts = topk_samples(is_w, 2246822519, wild_n)
+            pts = torch.cat([pts, wpts])
+            parts = torch.cat([parts, torch.where(
+                is_w[topw], num_parts, -1).to(torch.int32)])
 
-    n_points = torch.sum(((parts >= 0) & (parts < num_parts)).to(torch.int32))
-    # body-consistent foreground count in data-grid units (loss detection)
-    if use_bgsub:
-        n_fg = (torch.sum((depth_s > 0).to(torch.float32)) /
-                float(data_substride * data_substride))
-    else:
-        n_fg = torch.zeros((), dtype=torch.float32, device=dev)
+        n_points = torch.sum(((parts >= 0) & (parts < num_parts)).to(
+            torch.int32))
+        # body-consistent foreground count in data-grid units (loss detection)
+        if use_bgsub:
+            n_fg = (torch.sum((depth_s > 0).to(torch.float32)) /
+                    float(data_substride * data_substride))
+        else:
+            n_fg = torch.zeros((), dtype=torch.float32, device=dev)
 
-    N = pts.shape[0]
-    if N < pad_n:
-        pts = torch.cat([pts, torch.zeros((pad_n - N, 3), dtype=pts.dtype,
-                                          device=dev)])
-        parts = torch.cat([parts, torch.full((pad_n - N,), -1,
-                                             dtype=torch.int32, device=dev)])
+        N = pts.shape[0]
+        if N < pad_n:
+            pts = torch.cat([pts, torch.zeros((pad_n - N, 3), dtype=pts.dtype,
+                                              device=dev)])
+            parts = torch.cat([parts, torch.full(
+                (pad_n - N,), -1, dtype=torch.int32, device=dev)])
 
-    theta, diag = fit(ctx_fit if ctx_fit is not None else ctx, parents,
-                      pts.contiguous(), parts.contiguous(), theta0, beta_pose,
-                      beta_shape, n_steps=n_steps, use_jsr=use_jsr,
-                      num_parts=num_parts, point_weight=point_weight,
-                      plane_weight=plane_weight, huber_k=huber_k,
-                      robust_per_part=robust_per_part, beta_temp=beta_temp,
-                      clamp_angle=clamp_angle, freeze_shape=freeze_shape,
-                      model_sorted=fit_sorted and ctx_fit is not None,
-                      wild_gate=wild_gate, wild_weight=wild_weight)
+    with scope("fit"):
+        theta, diag = fit(
+            ctx_fit if ctx_fit is not None else ctx, parents,
+            pts.contiguous(), parts.contiguous(), theta0, beta_pose,
+            beta_shape, n_steps=n_steps, use_jsr=use_jsr,
+            num_parts=num_parts, point_weight=point_weight,
+            plane_weight=plane_weight, huber_k=huber_k,
+            robust_per_part=robust_per_part, beta_temp=beta_temp,
+            clamp_angle=clamp_angle, freeze_shape=freeze_shape,
+            model_sorted=fit_sorted and ctx_fit is not None,
+            wild_gate=wild_gate, wild_weight=wild_weight)
     if refine_steps > 0 and ring_faces is not None:
         # per-frame exactness stage: re-fit the SAME data bucket against the
         # mesh surface from the tracked pose, with the full model context
         # and the priors scaled down by refine_beta
-        theta, _ = fit_refine(
-            ctx, parents, ring_faces, pts.contiguous(), parts.contiguous(),
-            theta, beta_pose * refine_beta, beta_shape * refine_beta,
-            n_steps=refine_steps, num_parts=num_parts, wild=num_parts,
-            wild_gate2=wild_gate * wild_gate, freeze_shape=freeze_shape)
-    host_diag = torch.cat([
-        n_points[None].to(dtype), diag.cost[None].to(dtype),
-        diag.n_matched[None].to(dtype), diag.part_counts.to(dtype),
-        com_new.to(dtype).reshape(-1), model_com.to(dtype).reshape(-1),
-        torch.linalg.norm(theta.p - theta_in.p)[None].to(dtype),
-        n_fg[None].to(dtype), hard_overflow[None].to(dtype)])
-    if use_forest and seg_window is not None:
-        labels_out = torch.full((Hs, Ws), _BG, dtype=torch.uint8, device=dev)
-        labels_out[oy:oy + labels_s.shape[0], ox:ox + labels_s.shape[1]] = \
-            labels_s
-    else:
-        labels_out = labels_s
+        with scope("refine"):
+            theta, _ = fit_refine(
+                ctx, parents, ring_faces, pts.contiguous(),
+                parts.contiguous(), theta, beta_pose * refine_beta,
+                beta_shape * refine_beta, n_steps=refine_steps,
+                num_parts=num_parts, wild=num_parts,
+                wild_gate2=wild_gate * wild_gate, freeze_shape=freeze_shape)
+    with scope("glue/diag"):
+        host_diag = torch.cat([
+            n_points[None].to(dtype), diag.cost[None].to(dtype),
+            diag.n_matched[None].to(dtype), diag.part_counts.to(dtype),
+            com_new.to(dtype).reshape(-1), model_com.to(dtype).reshape(-1),
+            torch.linalg.norm(theta.p - theta_in.p)[None].to(dtype),
+            n_fg[None].to(dtype), hard_overflow[None].to(dtype)])
+        if use_forest and seg_window is not None:
+            labels_out = torch.full((Hs, Ws), _BG, dtype=torch.uint8,
+                                    device=dev)
+            labels_out[oy:oy + labels_s.shape[0],
+                       ox:ox + labels_s.shape[1]] = labels_s
+        else:
+            labels_out = labels_s
     return FrameOut(theta=theta, com_pre=com_new, labels_strided=labels_out,
                     host_diag=host_diag)
 
@@ -586,6 +610,8 @@ class FusedTracker:
         self.rtree = rtree
         self.ava = Avatar(model)
         self.timer = StageTimer()
+        self._metrics_file = None
+        self._metrics_frame = 0
         dev, dt = self.device, model.dtype
         tt = lambda a, dtype=dt: torch.as_tensor(a, dtype=dtype, device=dev)
 
@@ -800,39 +826,91 @@ class FusedTracker:
             n_data = (-(-window[0] // dsub)) * (-(-window[1] // dsub))
             pad_n, boost_n, wild_n = self._fit_bucket(n_data)
         k = self._consts()
-        return _fused_frame_impl(
-            self._ctx, self._ctx_fit, self._tree, self.model.parents, xyz,
-            labels, self._bg, self._intrin4, self._theta, self.com_pre,
-            k["beta_pose"], k["beta_shape"], k["nn_t"], k["nb_t"],
-            k["min_cc"], k["d2p"], seg_stride=self._seg_stride,
-            data_substride=self._data_substride, n_steps=n_steps,
-            num_parts=self.num_parts, max_depth=self._max_depth,
-            use_forest=self.rtree is not None, use_bgsub=self._use_bgsub,
-            use_jsr=self.model.use_joint_shape_regressor, pad_n=pad_n,
-            seg_window=window, conf_thresh=k["conf_vec"],
-            point_weight=k["point_weight"], plane_weight=k["plane_weight"],
-            huber_k=k["huber_k"], robust_per_part=c.robust_per_part,
-            use_render_labels=(render_labels and c.render_labels and
-                               self.rtree is not None),
-            render_tau=k["render_tau"],
-            # the temporal prior and the motion clamp would fight the
-            # exploration a reinit fit exists to do
-            beta_temp=k["zero"] if is_reinit else k["beta_temp"],
-            clamp_angle=k["zero"] if is_reinit else k["clamp_angle"],
-            boost_n=boost_n, boost_groups=tuple(c.extremity_boost_groups),
-            # steady-state frames solve in the reduced [dp | dr] tangent
-            freeze_shape=not (is_reinit or fit_shape),
-            fit_sorted=self._fit_sorted, wild_n=wild_n,
-            wild_gate=k["wild_gate"], wild_weight=k["wild_weight"],
-            sel_walk=float(c.selective_walk),
-            # no valid prior pose during a cold (re)init -> gate off
-            body_gate=(k["body_gate"] if (not is_reinit or reinit_gated)
-                       else k["zero"]),
-            ring_faces=self._ring if refine else None,
-            refine_steps=c.refine_steps if refine else 0,
-            refine_beta=k["refine_beta"],
-            theta_prev=self._theta if is_reinit else self._theta_prev,
-            extrap=k["extrap"])
+        with scope(FRAME_SCOPE):
+            return _fused_frame_impl(
+                self._ctx, self._ctx_fit, self._tree, self.model.parents, xyz,
+                labels, self._bg, self._intrin4, self._theta, self.com_pre,
+                k["beta_pose"], k["beta_shape"], k["nn_t"], k["nb_t"],
+                k["min_cc"], k["d2p"], seg_stride=self._seg_stride,
+                data_substride=self._data_substride, n_steps=n_steps,
+                num_parts=self.num_parts, max_depth=self._max_depth,
+                use_forest=self.rtree is not None, use_bgsub=self._use_bgsub,
+                use_jsr=self.model.use_joint_shape_regressor, pad_n=pad_n,
+                seg_window=window, conf_thresh=k["conf_vec"],
+                point_weight=k["point_weight"], plane_weight=k["plane_weight"],
+                huber_k=k["huber_k"], robust_per_part=c.robust_per_part,
+                use_render_labels=(render_labels and c.render_labels and
+                                   self.rtree is not None),
+                render_tau=k["render_tau"],
+                # the temporal prior and the motion clamp would fight the
+                # exploration a reinit fit exists to do
+                beta_temp=k["zero"] if is_reinit else k["beta_temp"],
+                clamp_angle=k["zero"] if is_reinit else k["clamp_angle"],
+                boost_n=boost_n, boost_groups=tuple(c.extremity_boost_groups),
+                # steady-state frames solve in the reduced [dp | dr] tangent
+                freeze_shape=not (is_reinit or fit_shape),
+                fit_sorted=self._fit_sorted, wild_n=wild_n,
+                wild_gate=k["wild_gate"], wild_weight=k["wild_weight"],
+                sel_walk=float(c.selective_walk),
+                # no valid prior pose during a cold (re)init -> gate off
+                body_gate=(k["body_gate"] if (not is_reinit or reinit_gated)
+                           else k["zero"]),
+                ring_faces=self._ring if refine else None,
+                refine_steps=c.refine_steps if refine else 0,
+                refine_beta=k["refine_beta"],
+                theta_prev=self._theta if is_reinit else self._theta_prev,
+                extrap=k["extrap"])
+
+    # the per-frame tracking state, all of which warmup() leaves untouched
+    _WARM_STATE = ("_theta", "_theta_prev", "com_pre", "reinit", "first_init",
+                   "_frame_no", "_lost_count", "_lost_frames",
+                   "_shape_refit_in", "_last_root_z", "_starve",
+                   "limb_recoveries", "_metrics_file", "_metrics_frame")
+
+    def warmup(self, frame, labels_override=None, batch: int = 0) -> None:
+        """Run every variant of ``track`` the tracking loop can reach on
+        ``frame``: the reinit, the steady state, the one-shot post-reinit
+        shape refit (``config.shape_refit_after``) and the periodic surface
+        refine (``config.refine_every``).  The first real frame then pays
+        for none of what a process pays once: the build and load of the NN
+        kernel, the allocator's pools, the NN scratch of each fit bucket,
+        the cuBLAS and cuSOLVER handles.  The per-frame tracking state, the
+        stage timer and an open metrics log are as before afterwards.  Call
+        after ``set_background``.  The port has no batch path (ROADMAP item
+        9), so ``batch`` > 0 raises."""
+        if batch > 0:
+            raise NotImplementedError(
+                "FusedTracker has no batch path in the port (ROADMAP item "
+                "9): warmup(batch > 0) has nothing to warm")
+        c = self.config
+        snap = {k: getattr(self, k) for k in self._WARM_STATE}
+        snap["_starve"] = self._starve.copy()
+        snap["limb_recoveries"] = dict(self.limb_recoveries)
+        stats = {k: list(v) for k, v in self.timer.stats.items()}
+        self._metrics_file = None        # keep warmup out of the log
+        try:
+            self.reinit = True
+            self.track(frame, labels_override)        # reinit
+            self.reinit = False
+            self._shape_refit_in = None
+            # a frame number whose successor is no refine frame, wherever
+            # there is one (refine_every == 1 refines every frame)
+            self._frame_no = 0
+            self.track(frame, labels_override)        # steady state
+            if c.shape_refit_after > 0:
+                self.reinit = False
+                self._shape_refit_in = 0
+                self._frame_no = 0
+                self.track(frame, labels_override)    # shape refit
+            if c.refine_every > 0:
+                self.reinit = False
+                self._shape_refit_in = None
+                self._frame_no = c.refine_every - 1
+                self.track(frame, labels_override)    # periodic refine
+        finally:
+            for k, v in snap.items():
+                setattr(self, k, v)
+            self.timer.stats = stats
 
     def _upload(self, depth_np: np.ndarray) -> torch.Tensor:
         if depth_np.dtype == np.uint16:
@@ -932,8 +1010,10 @@ class FusedTracker:
             self._last_root_z = float(np.mean(mz[mz > 0]))
         if not reinitialized:
             self._limb_recovery(diag, depth_np)
-        return TrackResult(ok=True, reinitialized=reinitialized,
-                           n_points=n_points, fit_info=self._fit_info(diag))
+        res = TrackResult(ok=True, reinitialized=reinitialized,
+                          n_points=n_points, fit_info=self._fit_info(diag))
+        self._log_metrics(res)
+        return res
 
     def _reinit(self, depth_np, labels, labels_override, xyz):
         """Host-side reinit: recentre at the cloud centroid and run
@@ -1009,6 +1089,33 @@ class FusedTracker:
         return dict(cost=diag.cost, n_matched=diag.n_matched,
                     part_counts=diag.part_counts.astype(int).tolist(),
                     hard_overflow=diag.hard_overflow)
+
+    # -- one JSON line of metrics per tracked frame --------------------------
+
+    def open_metrics(self, path: str) -> None:
+        """Write one JSON line per tracked frame to ``path``: frame index,
+        ok / reinit, point and match counts (also per part), fit cost and
+        the stages' latest wall ms."""
+        self._metrics_file = open(path, "w")
+        self._metrics_frame = 0
+
+    def close_metrics(self) -> None:
+        if self._metrics_file is not None:
+            self._metrics_file.close()
+            self._metrics_file = None
+
+    def _log_metrics(self, res: TrackResult) -> None:
+        if self._metrics_file is None:
+            return
+        rec = dict(frame=self._metrics_frame, ok=res.ok,
+                   reinit=res.reinitialized, n_points=res.n_points)
+        if res.fit_info:
+            rec.update(res.fit_info)
+        for k, v in self.timer.stats.items():
+            if v:
+                rec[f"{k}_ms"] = round(v[-1], 3)
+        self._metrics_file.write(json.dumps(rec) + "\n")
+        self._metrics_frame += 1
 
     def sync_avatar(self) -> Avatar:
         """Materialize the device-side pose into ``self.ava`` (host)."""

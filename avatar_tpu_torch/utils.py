@@ -1,5 +1,6 @@
-"""Data-dir discovery and stage profiling (counterparts of
-``resolve_root_path`` and ``StageTimer`` in ``avatar_tpu/utils.py``)."""
+"""Data-dir discovery, the visualization palette and stage profiling
+(counterparts of ``resolve_root_path``, ``palette_color`` /
+``palette_color_table`` and ``StageTimer`` in ``avatar_tpu/utils.py``)."""
 
 from __future__ import annotations
 
@@ -27,6 +28,27 @@ def resolve_root_path(rel_path: str) -> str:
         if root and os.path.exists(os.path.join(root, test_rel)):
             return os.path.join(root, rel_path)
     return os.path.join(_REPO_ROOT, rel_path)
+
+
+# 17-color visualization palette, RGB (reference Util.cpp:110-123 stores BGR;
+# these are the same colors).
+_PALETTE = np.array([
+    [255, 220, 0], [201, 13, 177], [34, 255, 94], [255, 65, 54],
+    [255, 255, 64], [0, 116, 217], [255, 133, 27], [240, 18, 190],
+    [210, 31, 20], [133, 20, 75], [127, 219, 255], [57, 204, 204],
+    [61, 153, 112], [46, 204, 64], [1, 255, 112], [170, 170, 170],
+    [42, 30, 225],
+], dtype=np.uint8)
+
+
+def palette_color(idx: int, bgr: bool = False) -> np.ndarray:
+    c = _PALETTE[idx % len(_PALETTE)]
+    return c[::-1] if bgr else c
+
+
+def palette_color_table(num_colors: int, bgr: bool = False) -> np.ndarray:
+    """[num_colors, 3] float table in [0, 1] (reference Util.cpp:125-135)."""
+    return np.stack([palette_color(i, bgr) for i in range(num_colors)]) / 255.0
 
 
 class StageTimer:

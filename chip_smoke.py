@@ -104,13 +104,41 @@ each (any failure exits non-zero and prints no result):
    run, which must grow the same tree), probe evaluations per second, the
    frame cache's bytes and the count scatter's device time with
    deterministic algorithms on and off.
-11. profile — ``torch.profiler`` over the planned search of phase 3: the
-   device launches per search and each kernel's own device time (last,
-   because a process that has run the profiler pays more for every
-   launch after it).
+11. stages — where a tracked frame's time goes.  The fused tracker as a
+   user drives it (``set_background``, ``warmup``, ``open_metrics``,
+   ``track`` over the 6 frames, ``close_metrics``), the accuracy mode and
+   the host tracker, each frame under ``profiling.stage_clock``.  One JSON
+   line per path (a fused reinit frame; fused steady, accuracy-mode and
+   host-tracker frames as medians over the 5 steady frames): per scope the
+   clock's elapsed ms on the device timeline (idle gaps included), the
+   host's wall ms, the entries and the synchronising copies and reads
+   PyTorch reports there (``torch.cuda.set_sync_debug_mode``; explicit
+   ``synchronize`` calls apart); the frames' wall ms with its spread.
+   Fails unless: the clocked frames equal an unclocked tracker's to the
+   bit (theta, labels, diag); the warmed tracker's frames equal a cold
+   one's and its state after ``warmup`` equals its state before;
+   ``warmup(batch=2)`` raises; the metrics log has one line per tracked
+   frame with the reference's keys and none from ``warmup``; the scopes
+   directly below a frame sum to within 10% of the frame's own
+   event-to-event ms; every stage and LM-step scope shows; B1 was
+   launched, and equals its plain version on every recorded search.  Then
+   a process's first ``track`` cold (a child process that builds the
+   kernel inside that call) against warmed (a child that calls ``warmup``
+   first): wall ms each, and the same pose to the bit.
+12. profile — ``torch.profiler``, last because a process that has run it
+   pays more for every launch after it.  The planned search of phase 3:
+   device launches per search and each kernel's own device time.  Then
+   ``profiling.device_trace`` around a reinit frame and a few steady frames
+   of each path of phase 11, read back by ``profiling.trace_attribution``:
+   one JSON line per path with the device's busy ms and launches per frame
+   by stage and by scope, and busy ms over the clock's elapsed ms, the
+   share of each scope in which the card worked.  Fails unless the trace
+   holds device events, every scope of phase 11 shows in it, the stages
+   sum to ``total_ms`` and ``total_ms`` is not above the traced frames'
+   wall ms.
 
-The kernel counts are reset before each main path (phases 4, 6, 7, 8 and
-9) and read after it.  The paths search through the fused entry
+The kernel counts are reset before each main path (phases 4, 6, 7, 8, 9
+and 11) and read after it.  The paths search through the fused entry
 (``nn_kernel.nn_match``); every recorded search is run again through the
 fused and the raw entry and must equal the plain version: indices equal
 and d2 equal to the last bit.  The line before the last is the kernels'
@@ -205,33 +233,9 @@ def phase_build():
 def _time_ms(fn, reps: int = 20) -> float:
     """CUDA events around ONE call on an idle device, median of ``reps``:
     the call's host work and launch latency are inside the interval."""
-    import torch
+    from avatar_tpu_torch import profiling
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def _busy(dev, ms: float) -> None:
-    """Queue about ``ms`` of device work, so what is queued next waits on
-    the device and then runs back to back."""
-    import torch
-
-    if hasattr(torch.cuda, "_sleep"):
-        torch.cuda._sleep(int(ms * 2.0e6))      # cycles, at up to 2 GHz
-    else:
-        x = torch.ones((4096, 4096), device=dev)
-        for _ in range(int(ms) + 1):
-            x = (x @ x).clamp_(max=1.0)
+    return profiling.time_jitted(fn, iters=reps, warmup=1)["p50_ms"]
 
 
 def _device_ms(fn, dev, n: int = 50, runs: int = 7) -> float:
@@ -240,25 +244,16 @@ def _device_ms(fn, dev, n: int = 50, runs: int = 7) -> float:
     warm-up), over ``n``; median of ``runs``."""
     import torch
 
+    from avatar_tpu_torch import profiling
+
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
         fn()
     hold_ms = (time.perf_counter() - t0) * 2e3 + 1.0
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        _busy(dev, hold_ms)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / n)
-    return float(np.median(times))
+    return float(np.median([profiling.time_queued(
+        fn, iters=n, hold_ms=hold_ms, device=dev) for _ in range(runs)]))
 
 
 def _host_us(fn, n: int = 50, runs: int = 7) -> float:
@@ -1396,6 +1391,462 @@ def phase_train(scene, images=TRAIN_IMAGES, depth=TRAIN_DEPTH, n_eval=16):
               f"{ms_off:.3f} without; counts equal", flush=True)
 
 
+# the scopes of items that every fused frame reaches, and of one LM step
+FRAME_SCOPES = ("bgsub", "forest_walk", "blob_suppress", "fit")
+LM_SCOPES = ("lbs", "vis", "nn", "weights", "jacobian", "gram", "solve",
+             "trial", "sync")
+COUNTED = 3     # frames of each path whose synchronising reads are counted
+
+
+@contextlib.contextmanager
+def _counting_syncs(counts: dict):
+    """Count the block's synchronising host reads, as PyTorch reports them
+    (``torch.cuda.set_sync_debug_mode("warn")``), under the stage clock's
+    open scope; explicit ``torch.cuda.synchronize`` calls are counted
+    apart, under "synchronize()"."""
+    import warnings
+
+    import torch
+
+    from avatar_tpu_torch import profiling
+
+    real_sync = torch.cuda.synchronize
+
+    def counted_sync(*a, **kw):
+        counts["synchronize()"] = counts.get("synchronize()", 0) + 1
+        return real_sync(*a, **kw)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        show = warnings.showwarning
+
+        def note(message, category, filename, lineno, file=None, line=None):
+            if "synchronizing" not in str(message):
+                return show(message, category, filename, lineno, file, line)
+            key = profiling.current_scope()
+            counts[key] = counts.get(key, 0) + 1
+
+        warnings.showwarning = note
+        torch.cuda.synchronize = counted_sync
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize = real_sync
+
+
+def _fused_outputs(tracker):
+    """Record what every ``_run`` of ``tracker`` returns; the returned list
+    holds the last frame's (theta, labels, diag) as numpy arrays."""
+    last, run = [], tracker._run
+
+    def keep(*a, **kw):
+        out = run(*a, **kw)
+        last[:] = [t.cpu().numpy() for t in out.theta] + [
+            out.labels_strided.cpu().numpy(), out.host_diag.cpu().numpy()]
+        return out
+
+    tracker._run = keep
+    return last
+
+
+def _tracker_state(tracker) -> dict:
+    """The fused tracker's per-frame state and its timer's, as numpy and
+    plain values."""
+    import torch
+
+    state = {}
+    for k in tracker._WARM_STATE + ("_use_bgsub",):
+        v = getattr(tracker, k)
+        if isinstance(v, tuple):
+            v = [t.cpu().numpy() for t in v]
+        elif isinstance(v, torch.Tensor):
+            v = v.cpu().numpy()
+        elif isinstance(v, (np.ndarray, dict)):
+            v = v.copy()
+        state[k] = v
+    state["timer.stats"] = {k: list(v) for k, v in
+                            tracker.timer.stats.items()}
+    return state
+
+
+def _equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return a.shape == b.shape and a.tobytes() == b.tobytes()
+    return a == b
+
+
+def _drive(track, frames, dev, outputs, mode: str = "plain"):
+    """Track ``frames``.  Per frame: the result, wall ms (host clock to a
+    synchronise) and ``outputs()``; in mode "clock" also the stage clock's
+    stages; in mode "count" the synchronising copies and reads per scope
+    instead (the clock is on to name the scope, but a reported read costs
+    the host far more than the read, so this pass's times are dropped)."""
+    import torch
+
+    from avatar_tpu_torch import profiling
+
+    rows = []
+    for frame in frames:
+        counts, clock = {}, None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "plain":
+            res = track(frame)
+        else:
+            with profiling.stage_clock(dev) as clock:
+                if mode == "count":
+                    with _counting_syncs(counts):
+                        res = track(frame)
+                else:
+                    res = track(frame)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append(dict(res=res, wall_ms=ms, out=outputs(), syncs=counts,
+                         stages=clock.stages if mode == "clock" else {}))
+    return rows
+
+
+def _summary(tag, path, rows, counted) -> dict:
+    """One path's JSON line: per scope the medians over ``rows`` of the
+    clock's elapsed ms (device timeline), host ms and entries, and over
+    ``counted`` (the same frames in a pass of their own) of the
+    synchronising copies and reads; the frames' wall ms with its spread;
+    and how far the scopes directly below a frame cover its own
+    event-to-event ms."""
+    med = lambda vals: float(np.median(vals))
+    names = sorted({k for r in rows for k in r["stages"]} |
+                   {k for r in counted for k in r["syncs"]})
+    scopes = {}
+    for k in names:
+        per = [r["stages"].get(k, {}) for r in rows]
+        scopes[k or "(outside)"] = dict(
+            {f: round(med([p.get(f, 0) for p in per]), 3)
+             for f in ("elapsed_ms", "host_ms", "entries")},
+            syncs=med([r["syncs"].get(k, 0) for r in counted]))
+    explicit = scopes.pop("synchronize()", {}).get("syncs", 0)
+    walls = [r["wall_ms"] for r in rows]
+    cover = []
+    for r in rows:
+        st = r["stages"]
+        top = sum(v["elapsed_ms"] for k, v in st.items()
+                  if v["depth"] == 1 and k != "diag_read")
+        cover.append(top / st["frame"]["elapsed_ms"])
+    line = dict(
+        path=path, frames=len(rows), counted_frames=len(counted),
+        deterministic_algorithms=True, wall_ms=round(med(walls), 3),
+        wall_ms_spread=[round(min(walls), 3), round(max(walls), 3)],
+        frame_elapsed_ms=scopes["frame"]["elapsed_ms"],
+        scopes_cover_frame=round(med(cover), 4),
+        host_syncs_per_frame=med([sum(
+            n for k, n in r["syncs"].items() if k != "synchronize()")
+            for r in counted]),
+        explicit_synchronize_per_frame=explicit, scopes=scopes)
+    print(f"[{tag}] " + json.dumps(line), flush=True)
+    for c in cover:
+        if not 0.9 <= c <= 1.1:
+            fail(f"[{tag}] {path}: the scopes' elapsed ms sum to {c:.3f} of "
+                 "the frame's own event-to-event ms (bound: within 10%)")
+    if line["host_syncs_per_frame"] <= 0:
+        fail(f"[{tag}] {path}: no synchronising read was counted")
+    return line
+
+
+def _counted(tag, tracker, frames, dev, plain_rows):
+    """The first frames again on a fresh fused tracker with the
+    synchronising reads counted; they must equal the plain run's."""
+    out = _fused_outputs(tracker)
+    rows = _drive(tracker.track, frames, dev, lambda: list(out), "count")
+    for i, (rp, rk) in enumerate(zip(plain_rows, rows)):
+        if not _equal(rp["out"], rk["out"]):
+            fail(f"[{tag}] frame {i}: the counted run differs from the plain "
+                 "one")
+    return rows
+
+
+def _need_scopes(tag, path, have, fits=("fit",)):
+    want = set(FRAME_SCOPES) | {f"{f}/{s}" for f in fits for s in LM_SCOPES}
+    want |= {f"{f}/trial/lbs" for f in fits} | set(fits)
+    missing = sorted(want - set(have))
+    if missing:
+        fail(f"[{tag}] {path}: scopes missing: {missing}")
+
+
+def first_track(mode: str) -> None:
+    """Child process of the ``stages`` phase: the wall ms of a process's
+    first ``track``, cold (the kernel built into an empty directory inside
+    that call) or after ``warmup`` on the same frame."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from avatar_tpu_torch.device import get_device
+    from avatar_tpu_torch.optim import nn_kernel
+
+    torch.use_deterministic_algorithms(True)
+    scene = Scene(get_device("cuda:0"))
+    tracker = scene.tracker()
+    frame = scene.frames[0]
+    out = dict(mode=mode, warmup_ms=0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        if mode == "cold":
+            nn_kernel._BUILD = Path(tmp)    # nothing built: nvcc runs
+        torch.cuda.synchronize()
+        if mode == "warm":
+            t0 = time.perf_counter()
+            tracker.warmup(frame)
+            torch.cuda.synchronize()
+            out["warmup_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        res = tracker.track(frame)
+        torch.cuda.synchronize()
+        out["first_track_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        tracker.track(scene.frames[1])
+        torch.cuda.synchronize()
+        out["second_track_ms"] = (time.perf_counter() - t0) * 1e3
+    out["ok"] = bool(res.ok and res.reinitialized)
+    out["pose"] = b"".join(t.cpu().numpy().tobytes()
+                           for t in tracker._theta).hex()
+    print(json.dumps(out), flush=True)
+
+
+def phase_stages(scene):
+    """Where a tracked frame's time goes: the stage clock over the fused
+    slice (with ``warmup`` and the metrics log, as a user drives it), the
+    accuracy mode and the host tracker.  Returns the kernel launches of
+    the clocked fused run, the recorded searches' largest d2 error and,
+    per path, the clock's summary for the trace phase."""
+    import tempfile
+
+    import torch
+
+    from avatar_tpu_torch.optim import nn_kernel
+
+    dev, frames = scene.dev, scene.frames
+    tag = "stages"
+    lines = {}
+
+    # warmup leaves the tracker as it was, and a warmed tracker tracks a
+    # cold one's frames
+    cold, warm = scene.tracker(), scene.tracker()
+    before = _tracker_state(warm)
+    t0 = time.perf_counter()
+    warm.warmup(frames[0])
+    torch.cuda.synchronize()
+    warmup_ms = (time.perf_counter() - t0) * 1e3
+    if not _equal(_tracker_state(warm), before):
+        fail(f"[{tag}] warmup changed the tracker's state")
+    try:
+        warm.warmup(frames[0], batch=2)
+    except NotImplementedError:
+        pass
+    else:
+        fail(f"[{tag}] warmup(batch=2) did not raise")
+    out_c, out_w = _fused_outputs(cold), _fused_outputs(warm)
+    rows_c = _drive(cold.track, frames, dev, lambda: list(out_c))
+    with tempfile.TemporaryDirectory() as tmp:
+        # the main path of this phase: warmed, logged, under the clock
+        log = os.path.join(tmp, "metrics.jsonl")
+        warm.open_metrics(log)
+        warm.warmup(frames[0])              # must not reach the log
+        calls = []
+        _reset_counts()
+        with _recording(calls):
+            rows_w = _drive(warm.track, frames, dev, lambda: list(out_w),
+                            "clock")
+        launches = dict(nn_kernel.LAUNCHES)
+        warm.close_metrics()
+        with open(log) as f:
+            logged = [json.loads(ln) for ln in f]
+    for i, (rc, rw) in enumerate(zip(rows_c, rows_w)):
+        if not rw["res"].ok or rw["res"].reinitialized != (i == 0):
+            fail(f"[{tag}] clocked frame {i}: ok={rw['res'].ok}")
+        if not _equal(rc["out"], rw["out"]):
+            fail(f"[{tag}] frame {i}: a warmed tracker under the stage "
+                 "clock differs from a cold one without it (theta, labels "
+                 "or diag)")
+    if not _equal({k: v for k, v in _tracker_state(warm).items()
+                   if not k.startswith(("_metrics", "timer"))},
+                  {k: v for k, v in _tracker_state(cold).items()
+                   if not k.startswith(("_metrics", "timer"))}):
+        fail(f"[{tag}] the warmed tracker's state after the frames differs")
+    keys = {"frame", "ok", "reinit", "n_points", "cost", "n_matched",
+            "part_counts", "hard_overflow", "reinit_ms"}
+    if [r["frame"] for r in logged] != list(range(len(frames))) or any(
+            not keys <= r.keys() for r in logged) or any(
+            "frame_ms" not in r for r in logged[1:]):
+        fail(f"[{tag}] the metrics log has not one line per tracked frame "
+             f"with the reference's keys: {logged}")
+    if launches["nn_argmin_ranges"] <= 0:
+        fail(f"[{tag}] the clocked path never launched nn_argmin_ranges")
+    print(f"[{tag}] warmup {warmup_ms:.1f} ms (reinit, steady and "
+          "shape-refit variants on frame 0), state after it equal to the "
+          f"state before; {len(frames)} frames of a warmed tracker under the "
+          "stage clock equal a cold tracker's without it to the bit (theta, "
+          f"labels, diag); metrics log {len(logged)} lines, none from "
+          f"warmup; kernel launches {launches}", flush=True)
+    _need_scopes(tag, "fused", rows_w[1]["stages"])
+    _need_scopes(tag, "fused reinit", rows_w[0]["stages"])
+    counted = _counted(tag, scene.tracker(), frames[:COUNTED], dev, rows_c)
+    lines["fused_reinit"] = _summary(tag, "fused_reinit", rows_w[:1],
+                                     counted[:1])
+    lines["fused_steady"] = _summary(tag, "fused_steady", rows_w[1:],
+                                     counted[1:])
+    plain = [r["wall_ms"] for r in rows_c[1:]]
+    print(f"[{tag}] fused steady wall ms with no clock (the cold tracker): "
+          f"median {np.median(plain):.1f}, spread {min(plain):.1f}-"
+          f"{max(plain):.1f}; reinit frame {rows_c[0]['wall_ms']:.1f} "
+          f"(first use of this configuration in the process); under the "
+          f"clock: median {lines['fused_steady']['wall_ms']:.1f}; with the "
+          "synchronising reads reported as warnings too: "
+          + ", ".join(f"{r['wall_ms']:.1f}" for r in counted[1:]),
+          flush=True)
+    max_err = _hold_recorded(tag, calls)
+
+    # accuracy mode: every steady frame refines
+    acc = dict(refine_every=1, refine_steps=2)
+    a_plain, a_clock = scene.tracker(**acc), scene.tracker(**acc)
+    out_p, out_k = _fused_outputs(a_plain), _fused_outputs(a_clock)
+    rows_p = _drive(a_plain.track, frames, dev, lambda: list(out_p))
+    calls = []
+    with _recording(calls):
+        rows_k = _drive(a_clock.track, frames, dev, lambda: list(out_k),
+                        "clock")
+    for i, (rp, rk) in enumerate(zip(rows_p, rows_k)):
+        if not rk["res"].ok or not _equal(rp["out"], rk["out"]):
+            fail(f"[{tag}] accuracy frame {i}: the clocked run differs from "
+                 "the plain one")
+    _need_scopes(tag, "accuracy", rows_k[1]["stages"], ("fit", "refine"))
+    counted = _counted(tag, scene.tracker(**acc), frames[:COUNTED], dev,
+                       rows_p)
+    lines["accuracy_steady"] = _summary(tag, "accuracy_steady", rows_k[1:],
+                                        counted[1:])
+    plain = [r["wall_ms"] for r in rows_p[1:]]
+    print(f"[{tag}] accuracy steady wall ms with no clock: median "
+          f"{np.median(plain):.1f}, spread {min(plain):.1f}-"
+          f"{max(plain):.1f}", flush=True)
+    max_err = max(max_err, _hold_recorded(tag + " accuracy", calls))
+
+    # the host tracker, frames as XYZ maps
+    xyzs = [scene.intrin.depth_to_xyz_np(f.astype(np.float32) * 1e-3)
+            for f in frames]
+    h_plain, h_clock = _host_tracker(scene), _host_tracker(scene)
+    host_out = lambda t: lambda: [t.ava.p.copy(), t.ava.r.copy(),
+                                  t.ava.w.copy(), t.com_pre.copy()]
+    rows_p = _drive(h_plain.track, xyzs, dev, host_out(h_plain))
+    calls = []
+    with _recording(calls):
+        rows_k = _drive(h_clock.track, xyzs, dev, host_out(h_clock), "clock")
+    for i, (rp, rk) in enumerate(zip(rows_p, rows_k)):
+        if not rk["res"].ok or not _equal(rp["out"], rk["out"]) or \
+                not np.array_equal(rp["res"].part_mask, rk["res"].part_mask):
+            fail(f"[{tag}] host frame {i}: the clocked run differs from the "
+                 "plain one")
+    _need_scopes(tag, "host", rows_k[1]["stages"])
+    h_count = _host_tracker(scene)
+    counted = _drive(h_count.track, xyzs[:COUNTED], dev, host_out(h_count),
+                     "count")
+    lines["host_steady"] = _summary(tag, "host_steady", rows_k[1:],
+                                    counted[1:])
+    plain = [r["wall_ms"] for r in rows_p[1:]]
+    print(f"[{tag}] host steady wall ms with no clock: median "
+          f"{np.median(plain):.1f}, spread {min(plain):.1f}-"
+          f"{max(plain):.1f}", flush=True)
+    max_err = max(max_err, _hold_recorded(tag + " host", calls))
+
+    # a process's first track, cold against warmed, each in a process of
+    # its own
+    first = {}
+    for mode in ("cold", "warm"):
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--first-track",
+             mode], capture_output=True, text=True, timeout=600)
+        if child.returncode != 0:
+            fail(f"[{tag}] the {mode} first-track process failed:\n"
+                 f"{child.stdout[-2000:]}\n{child.stderr[-2000:]}")
+        first[mode] = json.loads(child.stdout.strip().splitlines()[-1])
+        if not first[mode]["ok"]:
+            fail(f"[{tag}] the {mode} process's first track lost the body")
+    if first["cold"]["pose"] != first["warm"]["pose"]:
+        fail(f"[{tag}] a warmed process's pose after two frames differs "
+             "from a cold process's")
+    print(f"[{tag}] " + json.dumps(dict(
+        first_track={m: {k: round(v, 1) for k, v in first[m].items()
+                         if k.endswith("_ms")} for m in first},
+        cold_means="a fresh process, the CUDA context and the model on the "
+        "card, nothing else: its first track builds the kernel with nvcc "
+        "into an empty directory and loads it",
+        poses_equal=True)), flush=True)
+    return launches, max_err, lines
+
+
+def phase_trace(scene, lines):
+    """``device_trace`` over a reinit frame and a few steady frames of each
+    path, read back by ``trace_attribution``: the device's busy ms and its
+    launches per frame by stage and scope, beside the stage clock's elapsed
+    ms of ``phase_stages``.  After every other phase that times frames:
+    the profiler slows every later launch of its process."""
+    import tempfile
+
+    import torch
+
+    from avatar_tpu_torch import profiling
+
+    dev, frames = scene.dev, scene.frames
+    tag = "trace"
+    xyzs = [scene.intrin.depth_to_xyz_np(f.astype(np.float32) * 1e-3)
+            for f in frames]
+    acc = dict(refine_every=1, refine_steps=2)
+    paths = (("fused_reinit", scene.tracker(), frames, 0, 1, ("fit",)),
+             ("fused_steady", scene.tracker(), frames, 1, 5, ("fit",)),
+             ("accuracy_steady", scene.tracker(**acc), frames, 1, 4,
+              ("fit", "refine")),
+             ("host_steady", _host_tracker(scene), xyzs, 1, 4, ("fit",)))
+    for path, tracker, seq, lo, hi, fits in paths:
+        for frame in seq[:lo]:
+            tracker.track(frame)
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profiling.device_trace(tmp, dev):
+                for frame in seq[lo:hi]:
+                    if not tracker.track(frame).ok:
+                        fail(f"[{tag}] {path}: a traced frame lost track")
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / (hi - lo)
+            size = sum(os.path.getsize(os.path.join(tmp, f))
+                       for f in os.listdir(tmp))
+            t0 = time.perf_counter()
+            out = profiling.trace_attribution(tmp, hi - lo)
+            parse_s = time.perf_counter() - t0
+        if not out["on_device"] or out["total_ms"] <= 0:
+            fail(f"[{tag}] {path}: the trace holds no device event")
+        if out["total_ms"] > wall:
+            fail(f"[{tag}] {path}: busy {out['total_ms']} ms per frame above "
+                 f"the traced frames' wall {wall:.1f} ms")
+        if abs(sum(out["stages"].values()) - out["total_ms"]) > 0.05:
+            fail(f"[{tag}] {path}: the stages do not sum to total_ms")
+        _need_scopes(tag, path, out["scopes"], fits)
+        clock = lines[path]["scopes"]
+        share = {k: round(v["ms"] / clock[k]["elapsed_ms"], 4)
+                 for k, v in out["scopes"].items()
+                 if clock.get(k, {}).get("elapsed_ms", 0) > 0}
+        print(f"[{tag}] " + json.dumps(dict(
+            path=path, frames=hi - lo, traced_wall_ms=round(wall, 3),
+            busy_ms=out["total_ms"], launches=out["launches"],
+            busy_share_of_traced_wall=round(out["total_ms"] / wall, 4),
+            stages_busy_ms=out["stages"], scopes=out["scopes"],
+            busy_over_clock_elapsed=share,
+            trace_gz_bytes=size, parse_s=round(parse_s, 2))), flush=True)
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "avatar_tpu_torch")):
         fail("run from a checkout of the repository: avatar_tpu_torch/ "
@@ -1416,10 +1867,13 @@ def main():
     paths["host"] = tuple(host)
     paths["library"] = phase_library(scene, samples)
     phase_train(scene)
+    *stages, lines = phase_stages(scene)
+    paths["stages"] = tuple(stages)
     # every recorded launch of each path was held against the plain
     # version, to the last bit
     path_err = max(out[-1] for out in paths.values())
     phase_profile(search)
+    phase_trace(scene, lines)
 
     kernels = []
     for name, replaces, key in (
@@ -1451,4 +1905,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--first-track"]:
+        first_track(sys.argv[2])
+    else:
+        main()

@@ -519,3 +519,84 @@ def test_trainer_with_cache_left_on_host(cuda, monkeypatch):
     assert not on_host._depth_cache.is_cuda
     for f in ("u", "v", "thresh", "lnode", "rnode", "leafid", "leaf_data"):
         np.testing.assert_array_equal(getattr(fd_host, f), getattr(fd, f))
+
+
+@pytest.mark.cuda
+def test_stage_clock_reads_a_known_length(cuda):
+    """The stage clock around device work of a known length (a spin of
+    ``torch.cuda._sleep`` cycles, timed by CUDA events on its own): each
+    scope reads its own length within 10%, nested scopes nest, nothing is
+    read before the clock's one synchronise, and with no clock active a
+    scope makes no event."""
+    from avatar_tpu_torch import profiling
+
+    def spin(ms_at_2ghz):
+        torch.cuda._sleep(int(ms_at_2ghz * 2.0e6))
+
+    spin(1.0)
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    spin(10.0)
+    b.record()
+    b.synchronize()
+    unit = a.elapsed_time(b) / 10.0          # ms per nominal ms of spin
+    made = []
+    real = profiling._new_event
+    profiling._new_event = lambda: made.append(1) or real()
+    try:
+        with profiling.scope("frame"):
+            spin(1.0)
+        assert not made
+        with profiling.stage_clock(cuda) as clock:
+            with profiling.scope("frame"):
+                with profiling.scope("fit"):
+                    spin(20.0)
+                    with profiling.scope("nn"):
+                        spin(10.0)
+                with profiling.scope("glue/diag"):
+                    spin(5.0)
+            assert not clock.stages
+    finally:
+        profiling._new_event = real
+    assert 0 < len(made) <= 8
+    st = clock.stages
+    assert {k: (v["entries"], v["depth"]) for k, v in st.items()} == {
+        "frame": (1, 0), "fit": (1, 1), "fit/nn": (1, 2),
+        "glue/diag": (1, 1)}
+    for name, want in (("fit/nn", 10.0), ("fit", 30.0), ("glue/diag", 5.0),
+                       ("frame", 35.0)):
+        got = st[name]["elapsed_ms"]
+        assert abs(got - want * unit) <= 0.1 * want * unit, (name, got, unit)
+    # the host only queued the spins: its own time is far below the device's
+    assert st["frame"]["host_ms"] < 0.5 * st["frame"]["elapsed_ms"]
+    assert st["fit"]["elapsed_ms"] >= st["fit/nn"]["elapsed_ms"]
+    # the timers: a blocked call holds the spin, queued calls run back to back
+    jit = profiling.time_jitted(spin, 5.0, iters=5, warmup=1, device=cuda)
+    assert abs(jit["p50_ms"] - 5.0 * unit) <= 0.1 * 5.0 * unit + 0.05
+    am = profiling.time_amortized(spin, 5.0, iters=5, warmup=1, device=cuda)
+    assert abs(am["ms"] - 5.0 * unit) <= 0.1 * 5.0 * unit + 0.05
+
+
+@pytest.mark.cuda
+def test_trace_attribution_on_card(cuda, tmp_path):
+    """``device_trace`` on the card: kernels are attributed, through the
+    correlation id of their launches, to the scope that queued them even
+    when they run after the host has left it."""
+    from avatar_tpu_torch import profiling
+
+    x = torch.ones((2048, 2048), device=cuda)
+    (x @ x).sum().item()
+    with profiling.device_trace(str(tmp_path), cuda):
+        for _ in range(2):
+            with profiling.scope("frame"):
+                with profiling.scope("fit"):
+                    for _ in range(8):
+                        y = x @ x             # queued here, runs later
+                with profiling.scope("sync"):
+                    float(y[0, 0])
+    out = profiling.trace_attribution(str(tmp_path), 2)
+    assert out["on_device"] and out["total_ms"] > 0
+    assert out["scopes"]["fit"]["launches"] >= 8
+    assert out["stages"]["fit"] > 0.8 * out["total_ms"]
+    assert abs(sum(out["stages"].values()) - out["total_ms"]) <= 0.01

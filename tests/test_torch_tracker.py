@@ -7,9 +7,12 @@ part-sorted NN (the reference's Pallas kernel in interpret mode).
 Per frame: the strided label image and n_points are equal, the part
 centres (com_pre) agree within 1e-3 px, and the pose within the fit
 tolerances (p 1e-4 m, rotations 1e-4, shape keys 1e-3).  Also: the port
-imports without JAX.
+imports without JAX.  ``warmup`` leaves the tracker as it found it, and the
+metrics log has the reference's lines (integer fields equal; the cost
+within 1e-3 relative, the shape-key tolerance of the fits above).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -188,6 +191,7 @@ def test_port_imports_without_jax():
         "bad = [m for m in sys.modules if m.startswith('avatar_tpu') and\n"
         "       not m.startswith('avatar_tpu_torch')]\n"
         "assert not bad, bad\n"
+        "assert 'avatar_tpu_torch.profiling' in sys.modules\n"
         "print('ok')\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
@@ -278,3 +282,130 @@ def test_fused_tracker_refine_matches_reference(planned_nn, monkeypatch):
         tt._theta_prev = tt._theta
         tt._theta = from_reference(out_j.theta, "cpu")
         tt.com_pre = from_reference(out_j.com_pre, "cpu")
+
+
+def _snapshot(tracker):
+    """Every attribute of the per-frame tracking state, and the timer's."""
+    state = {k: getattr(tracker, k) for k in tracker._WARM_STATE}
+    state["_starve"] = tracker._starve.copy()
+    state["limb_recoveries"] = dict(tracker.limb_recoveries)
+    state["timer.stats"] = {k: list(v) for k, v in
+                            tracker.timer.stats.items()}
+    return state
+
+
+def _same_state(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], tuple):                  # a Theta
+            assert all(torch.equal(x, y) for x, y in zip(a[k], b[k])), k
+        elif isinstance(a[k], torch.Tensor):
+            assert torch.equal(a[k], b[k]), k
+        elif isinstance(a[k], np.ndarray):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        else:
+            assert a[k] == b[k], k
+
+
+def test_warmup_leaves_no_trace(tmp_path):
+    """A warmed tracker (reinit, steady, shape-refit and refine variants,
+    on a fresh tracker and again mid-sequence) is in the state it was in
+    before, ``first_init`` and ``timer.stats`` included, writes nothing to
+    an open metrics log, and tracks the frames of an unwarmed tracker bit
+    for bit.  ``warmup(batch > 0)`` raises: the port has no batch path."""
+    tmodel = t_synthetic_model(detail=2, device="cpu")
+    frames = _frames(j_synthetic_model(detail=2))
+    cfg = dict(CFG, refine_every=2, refine_steps=2, shape_refit_after=1)
+    bg = np.full((H, W), WALL, np.float32)
+    trackers = []
+    for _ in range(2):
+        t = TTracker(tmodel, TIntrin(fx=FX, fy=FY, cx=CX, cy=CY), (H, W),
+                     rtree=_trees(TRTree, device="cpu"), config=TConfig(**cfg))
+        t.set_background(bg)
+        trackers.append(t)
+    cold, warm = trackers
+    warm.open_metrics(str(tmp_path / "warm.jsonl"))
+    calls = []
+    real_run = warm._run
+
+    def spy(*a, **kw):
+        calls.append((kw.get("is_reinit", False), kw.get("refine", False),
+                      kw.get("fit_shape", False)))
+        return real_run(*a, **kw)
+
+    warm._run = spy
+    for i, frame in enumerate(frames):
+        before = _snapshot(warm)
+        del calls[:]
+        warm.warmup(frame)
+        variants = set(calls)
+        assert variants == {(True, False, False), (False, False, False),
+                            (False, False, True), (False, True, False)}
+        _same_state(_snapshot(warm), before)
+        assert warm.first_init == (i == 0)
+        rc, rw = cold.track(frame), warm.track(frame)
+        assert (rw.ok, rw.reinitialized, rw.n_points, rw.fit_info) == \
+            (rc.ok, rc.reinitialized, rc.n_points, rc.fit_info)
+        assert rw.ok
+        for a, b in zip(warm._theta, cold._theta):
+            assert torch.equal(a, b), f"frame {i}"
+        assert torch.equal(warm.com_pre, cold.com_pre)
+    _same_state({k: v for k, v in _snapshot(warm).items()
+                 if k not in ("_metrics_file", "_metrics_frame",
+                              "timer.stats")},
+                {k: v for k, v in _snapshot(cold).items()
+                 if k not in ("_metrics_file", "_metrics_frame",
+                              "timer.stats")})
+    warm.close_metrics()
+    lines = (tmp_path / "warm.jsonl").read_text().splitlines()
+    assert [json.loads(ln)["frame"] for ln in lines] == [0, 1, 2]
+    with pytest.raises(NotImplementedError, match="item 9"):
+        warm.warmup(frames[0], batch=1)
+
+
+def test_metrics_log_matches_reference(planned_nn, tmp_path):
+    """``open_metrics`` / ``close_metrics``: over a reinit and two steady
+    frames, each from the reference's state, both packages write one line
+    per tracked frame with the same keys; flags, counts and per-part
+    counts are equal, the cost within 1e-3 relative, and a lost frame
+    writes no line."""
+    from avatar_tpu_torch.convert import from_reference
+
+    jmodel = j_synthetic_model(detail=2)
+    tmodel = t_synthetic_model(detail=2, device="cpu")
+    frames = _frames(jmodel)
+    jt = JTracker(jmodel, CameraIntrin(fx=FX, fy=FY, cx=CX, cy=CY), (H, W),
+                  rtree=_trees(JRTree), config=JConfig(**CFG))
+    tt = TTracker(tmodel, TIntrin(fx=FX, fy=FY, cx=CX, cy=CY), (H, W),
+                  rtree=_trees(TRTree, device="cpu"), config=TConfig(**CFG))
+    bg = np.full((H, W), WALL, np.float32)
+    paths = [str(tmp_path / "j.jsonl"), str(tmp_path / "t.jsonl")]
+    for t, path in zip((jt, tt), paths):
+        t.set_background(bg)
+        t.open_metrics(path)
+    for frame in frames:
+        assert jt.track(frame).ok and tt.track(frame).ok
+        # the next frame starts from the reference's state in both
+        tt._theta = from_reference(jt._theta, "cpu")
+        tt._theta_prev = from_reference(jt._theta_prev, "cpu")
+        tt.com_pre = from_reference(jt.com_pre, "cpu")
+    empty = np.full((H, W), int(WALL * 1000), np.uint16)
+    assert not jt.track(empty).ok and not tt.track(empty).ok
+    jt.close_metrics()
+    tt.close_metrics()
+    tt.close_metrics()                      # closing twice is harmless
+    lines_j, lines_t = ([json.loads(ln) for ln in open(p)] for p in paths)
+    assert len(lines_j) == len(lines_t) == len(frames)
+    for i, (rj, rt) in enumerate(zip(lines_j, lines_t)):
+        assert rt.keys() == rj.keys(), f"frame {i}"
+        assert {"frame", "ok", "reinit", "n_points", "cost", "n_matched",
+                "part_counts", "hard_overflow"} <= rt.keys()
+        assert ("reinit_ms" in rt) and (i == 0 or "frame_ms" in rt)
+        for k in ("frame", "ok", "reinit", "n_points", "n_matched",
+                  "part_counts"):
+            assert rt[k] == rj[k], (i, k)
+        assert rt["frame"] == i and rt["reinit"] == (i == 0)
+        np.testing.assert_allclose(rt["cost"], rj["cost"], rtol=1e-3)
+        np.testing.assert_allclose(rt["hard_overflow"], rj["hard_overflow"],
+                                   atol=1e-6)
+        assert all(rt[k] > 0 for k in rt if k.endswith("_ms"))
