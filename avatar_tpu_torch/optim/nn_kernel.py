@@ -20,18 +20,18 @@ run can show that its path went through each kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 from pathlib import Path
 from typing import NamedTuple, Optional
 
 import torch
 
+from avatar_tpu_torch.build_cache import BUILD, build_cached, cached_path
+
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc" / "nn_argmin.cu"
-_BUILD = _PKG / "_build"
+_BUILD = BUILD
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
                "--fmad=false", "-std=c++17", "-shared", "-Xcompiler",
                "-fPIC", "-Xptxas", "-v")
@@ -64,9 +64,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the built library of the current source and flags goes."""
-    tag = hashlib.sha256(_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()
-                         ).hexdigest()[:16]
-    return _BUILD / f"libnn_argmin_{tag}.so"
+    return cached_path(_SRC, _NVCC_FLAGS, "libnn_argmin", _BUILD)
 
 
 def build() -> str:
@@ -76,17 +74,10 @@ def build() -> str:
     global _lib
     if _lib is not None:
         return ""
-    lib_path = library_path()
-    log = ""
-    if not lib_path.exists():
-        _BUILD.mkdir(exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                               str(_SRC)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-        log = proc.stdout + proc.stderr
+    lib_path, log = build_cached(
+        _SRC, _NVCC_FLAGS, "libnn_argmin",
+        lambda out: [_nvcc(), *_NVCC_FLAGS, "-o", str(out), str(_SRC)],
+        _BUILD)
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.avatar_nn_scratch_bytes.argtypes = [i32, i32]

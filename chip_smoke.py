@@ -104,6 +104,29 @@ each (any failure exits non-zero and prints no result):
    run, which must grow the same tree), probe evaluations per second, the
    frame cache's bytes and the count scatter's device time with
    deterministic algorithms on and off.
+10b. tools — the camera-to-tracker entry points as a user runs them, at
+   1280x720 (K4A intrinsics), with the detail-6 model and the r5 forests.
+   The native library is built (``native.build.build()``) and must be what
+   serves: its RLE bytes equal the numpy codec's on the 6 frames, and
+   ``connected_components_host`` equals ``perception.cc`` on the card,
+   label for label, on frame 0's bgsub mask.  The 6 frames and a
+   background frame 9999 go through ``DatasetWriter`` as ``.depth`` RLE
+   (also where OpenCV could write EXR) and read back equal
+   (``Dataset.xyz`` ms, native and numpy).
+   ``demo.main``, host and ``--fused``, with ``--part-groups`` and
+   ``--metrics``: per frame ok, n_points, reinit and joints equal to the
+   bit to the same tracker class built with the same config and driven
+   directly over the same arrays (wall ms per steady frame of both, joint
+   error to GT).  ``rtree_run_dataset`` with the three trees and
+   ``rtree_run`` on one frame equal ``RTree.predict`` / ``predict_best`` +
+   ``post_process``.  ``live_demo`` twice, each under a wall-clock limit:
+   the synthetic camera rendering on the card in its capture thread
+   (oracle labels), and a recording with the forest, ``--fused`` and
+   ``--capture-bg-after 1``: frames tracked, ok, per second, and the
+   camera thread's share.  ``SyntheticCamera.next_frame`` ms at 360x640
+   and 720p.  ``data_recording`` and ``smplsynth`` run only where OpenCV
+   is installed.  Every B1 launch of the tools is held against the plain
+   version to the bit.
 11. stages — where a tracked frame's time goes.  The fused tracker as a
    user drives it (``set_background``, ``warmup``, ``open_metrics``,
    ``track`` over the 6 frames, ``close_metrics``), the accuracy mode and
@@ -137,8 +160,8 @@ each (any failure exits non-zero and prints no result):
    sum to ``total_ms`` and ``total_ms`` is not above the traced frames'
    wall ms.
 
-The kernel counts are reset before each main path (phases 4, 6, 7, 8, 9
-and 11) and read after it.  The paths search through the fused entry
+The kernel counts are reset before each main path (phases 4, 6, 7, 8, 9,
+each tool run of 10b, and 11) and read after it.  The paths search through the fused entry
 (``nn_kernel.nn_match``); every recorded search is run again through the
 fused and the raw entry and must equal the plain version: indices equal
 and d2 equal to the last bit.  The line before the last is the kernels'
@@ -151,6 +174,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1391,6 +1415,433 @@ def phase_train(scene, images=TRAIN_IMAGES, depth=TRAIN_DEPTH, n_eval=16):
               f"{ms_off:.3f} without; counts equal", flush=True)
 
 
+TOOLS_LIMIT_S = 240     # wall-clock limit of one live_demo run
+
+
+def _timed_median_ms(fn, reps: int) -> float:
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+@contextlib.contextmanager
+def _wall_limit(seconds: int, what: str):
+    """Fail, instead of hanging, when the block outlasts ``seconds``."""
+    import signal
+
+    def expired(signum, frame):
+        raise TimeoutError(f"{what} ran past its {seconds} s limit")
+
+    old = signal.signal(signal.SIGALRM, expired)
+    signal.alarm(seconds)
+    try:
+        yield
+    except TimeoutError as e:
+        fail(f"[tools] {e}")
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+
+
+def _tools_native(scene, depths):
+    """The native library: built, serving, the codec byte-equal to the
+    numpy one on the 6 frames, and the host labeler equal to the device
+    labeler on frame 0's bgsub mask, on its forest segmentation (a
+    component per part region) and on a seeded random mask."""
+    import torch
+
+    from avatar_tpu_torch.native import build as nbuild
+    from avatar_tpu_torch.native import labeling, rle
+    from avatar_tpu_torch.perception import cc
+    from avatar_tpu_torch.perception.bgsub import BGSubtractor
+    from avatar_tpu_torch.perception.rtree import RTree
+
+    t0 = time.perf_counter()
+    path = nbuild.build(verbose=False)
+    build_s = time.perf_counter() - t0
+    if not rle._load_native():
+        fail(f"[tools] native library built at {path} but not serving")
+    for i, d in enumerate(depths):
+        data = rle.encode(d)
+        lib, rle._LIB = rle._LIB, False
+        try:
+            plain = rle.encode(d)
+            plain_back = rle.decode(plain)
+        finally:
+            rle._LIB = lib
+        if data != plain:
+            fail(f"[tools] frame {i}: native RLE bytes differ from numpy's")
+        back = rle.decode(data)
+        if back.tobytes() != d.tobytes() or \
+                plain_back.tobytes() != d.tobytes():
+            fail(f"[tools] frame {i}: RLE decode differs from the frame")
+    bg = scene.intrin.depth_to_xyz_np(np.full((H, W), scene.bg_m,
+                                              np.float32))
+    mask = BGSubtractor(bg, stride=1, device=scene.dev).run(
+        scene.intrin.depth_to_xyz_np(depths[0]))
+    seg = RTree(FORESTS[0], device=scene.dev).predict_best(depths[0])
+    rng = np.random.default_rng(0)
+    noise = rng.random((H, W)) < 0.5
+    cases = (("bgsub mask", mask != 255, None),
+             ("forest segmentation", seg != 255, seg),
+             ("random mask", noise, None),
+             ("random mask and values", noise,
+              rng.integers(0, 3, (H, W)).astype(np.uint8)))
+    counts = []
+    for what, active, values in cases:
+        host = labeling.connected_components_host(active, values)
+        dev = cc.connected_components(
+            torch.as_tensor(active, device=scene.dev),
+            values=None if values is None else torch.as_tensor(
+                values, device=scene.dev), max_iters=4096).cpu().numpy()
+        if not np.array_equal(host, dev):
+            fail(f"[tools] connected_components_host differs from "
+                 f"perception.cc.connected_components on the card ({what})")
+        counts.append(f"{what} {int(active.sum())} pixels, "
+                      f"{len(np.unique(host[active]))} components")
+    print(f"[tools] native library {os.path.basename(path)} built in "
+          f"{build_s:.2f} s and serving; RLE bytes equal to numpy's on "
+          f"{len(depths)} frames; host labels equal the card's at "
+          f"{W}x{H}: " + "; ".join(counts), flush=True)
+
+
+def _write_dataset(scene, root, depths):
+    """The 6 frames and the background frame 9999 through ``DatasetWriter``
+    as ``.depth`` RLE, read back equal; ``Dataset.xyz`` ms per frame,
+    native and numpy."""
+    from avatar_tpu_torch.io.dataset import Dataset, DatasetWriter
+    from avatar_tpu_torch.native import rle
+
+    # RLE even where OpenCV could write EXR: the native codec is on the path
+    w = DatasetWriter(root, scene.intrin, pad=4, use_exr=False)
+    for i, d in enumerate(depths):
+        w.write_depth(i + 1, d)
+    bg = np.full((H, W), scene.bg_m, np.float32)
+    w.write_depth(9999, bg)
+    ds = Dataset(root, pad=4)
+    if list(ds.frames()) != list(range(1, len(depths) + 1)):
+        fail(f"[tools] dataset frames {list(ds.frames())}")
+    for i, d in enumerate(depths):
+        if ds.depth(i + 1).tobytes() != d.tobytes():
+            fail(f"[tools] dataset frame {i + 1} reads back different")
+    if ds.depth(9999).tobytes() != bg.tobytes():
+        fail("[tools] dataset background frame reads back different")
+    ms = {}
+    for name, lib in (("native", rle._load_native()), ("numpy", False)):
+        keep, rle._LIB = rle._LIB, lib
+        try:
+            ms[name] = _timed_median_ms(
+                lambda: [ds.xyz(i + 1) for i in range(len(depths))], 5) / \
+                len(depths)
+        finally:
+            rle._LIB = keep
+    print(f"[tools] dataset written (RLE) and read back equal; "
+          f"Dataset.xyz ms per {W}x{H} frame: native "
+          f"{ms['native']:.3f}, numpy {ms['numpy']:.3f}", flush=True)
+    return ds
+
+
+class _Recorder:
+    """Per ``track`` of a tracker class: (ok, n_points, reinitialized,
+    joints) and the host clock at its entry; the trackers built."""
+
+    def __init__(self, cls, fused: bool):
+        self.built, self.rows, self.entries = [], [], []
+        rec = self
+
+        class Recording(cls):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                rec.built.append(self)
+
+            def track(self, *a, **kw):
+                rec.entries.append(time.perf_counter())
+                res = super().track(*a, **kw)
+                rec.rows.append(_track_row(self, res, fused))
+                return res
+
+        self.cls = Recording
+
+
+def _track_row(tracker, res, fused):
+    joints = tracker.pose()[1] if fused else tracker.ava.joint_pos.copy()
+    return (res.ok, res.n_points, res.reinitialized, joints)
+
+
+def _tools_demo(scene, root, fused, calls, launches):
+    """``demo.main`` over the dataset against the same tracker class,
+    built with the same config, driven directly over the same arrays.
+    The tool's kernel launches go to ``launches``; the searches of both
+    drives are recorded into ``calls``."""
+    import dataclasses
+
+    import torch
+
+    from avatar_tpu_torch import tracking_fused
+    from avatar_tpu_torch.io.dataset import Dataset
+    from avatar_tpu_torch.tools import demo
+
+    tag = "demo fused" if fused else "demo host"
+    owner, name = ((tracking_fused, "FusedTracker") if fused
+                   else (demo, "Tracker"))
+    real = getattr(owner, name)
+    rec = _Recorder(real, fused)
+    setattr(owner, name, rec.cls)
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                _tool_launches(calls, launches):
+            log = os.path.join(tmp, "metrics.jsonl")
+            demo.main([root, FORESTS[0], "-I", "6", "-t", "2", "-T", "6",
+                       "--inner-iters", "4", "-M", "1000",
+                       "--synthetic-model", "6", "--part-groups",
+                       "--metrics", log] + (["--fused"] if fused else []))
+            with open(log) as f:
+                logged = len(f.readlines())
+    finally:
+        setattr(owner, name, real)
+    torch.cuda.synchronize()
+    rows = rec.rows
+    if len(rows) != len(scene.frames) or len(rec.built) != 1:
+        fail(f"[{tag}] {len(rows)} frames tracked by {len(rec.built)} "
+             "trackers")
+    if logged != sum(r[0] for r in rows):
+        fail(f"[{tag}] metrics log has {logged} lines")
+    built = rec.built[0]
+    direct = real(built.model, built.intrin, built.image_size,
+                  rtree=built.rtree, config=dataclasses.replace(built.config))
+    ds = Dataset(root, pad=4)
+    direct.set_background(ds.xyz(9999))
+    walls = []
+    with _recording(calls):
+        for i, row in enumerate(rows):
+            xyz = ds.xyz(i + 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = direct.track(xyz)
+            got = _track_row(direct, res, fused)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if got[:3] != row[:3] or got[3].tobytes() != row[3].tobytes():
+                fail(f"[{tag}] frame {i}: the tool's result {row[:3]} "
+                     f"differs from the direct drive's {got[:3]}, or its "
+                     "joints")
+            if not row[0]:
+                fail(f"[{tag}] frame {i} lost track")
+    gaps = np.diff(rec.entries) * 1e3
+    err = [_joint_mm(r[3], scene.gt[i]) for i, r in enumerate(rows)]
+    print(f"[{tag}] {len(rows)} frames: ok, n_points, reinit and joints "
+          f"equal to the bit to the direct drive's; joints vs GT "
+          + ", ".join(f"{e:.2f}" for e in err) + " mm (mean "
+          f"{np.mean(err):.2f}); steady wall ms per frame: demo "
+          f"{np.median(gaps[1:]):.1f} (frame to frame), direct "
+          f"{np.median(walls[1:]):.1f}", flush=True)
+
+
+def _tools_segmentation(scene, root, depths):
+    """``rtree_run_dataset`` with the three r5 trees and ``rtree_run`` on
+    one frame, against ``RTree.predict`` / ``predict_best`` and
+    ``post_process`` called directly."""
+    from avatar_tpu_torch.perception.rtree import RTree
+    from avatar_tpu_torch.tools import rtree_run, rtree_run_dataset
+    from avatar_tpu_torch.utils import palette_color_table
+
+    def same(path, seg, parts):
+        if path.endswith(".npy"):
+            return np.array_equal(np.load(path), seg)
+        import cv2
+
+        table = (palette_color_table(max(parts, 17)) * 255).astype(np.uint8)
+        vis = table[np.minimum(seg, parts - 1)]
+        vis[seg == 255] = 0
+        return np.array_equal(cv2.imread(path), vis)
+
+    trees = [RTree(p, device=scene.dev) for p in FORESTS]
+    P = trees[0].num_parts
+    n = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        rtree_run_dataset.main([root, *FORESTS, "--out", tmp,
+                                "--max-frames", str(n)])
+        com_pre = np.full((2, P), -1.0)
+        com_pre[1, :] = 0.0
+        files = sorted(os.listdir(tmp))
+        if len(files) != n:
+            fail(f"[tools] rtree_run_dataset wrote {files}")
+        for i in range(n):
+            dist = None
+            for t in trees:
+                d = t.predict(depths[i], interval=2)
+                dist = d if dist is None else dist + d
+            seg = np.where(dist.sum(-1) > 0,
+                           np.argmax(dist, -1).astype(np.uint8), 255)
+            seg = trees[0].post_process(seg, com_pre, interval=2)
+            if not same(os.path.join(tmp, files[i]), seg, P):
+                fail(f"[tools] rtree_run_dataset frame {i + 1} differs from "
+                     "predict + post_process")
+        out = os.path.join(tmp, "one.png")
+        rtree_run.main([os.path.join(root, "depth_exr", "depth_0001.depth"),
+                        FORESTS[0], "-o", out])
+        out = out if os.path.exists(out) else out + ".npy"
+        if not same(out, trees[0].predict_best(depths[0]), P):
+            fail("[tools] rtree_run differs from predict_best")
+    print(f"[tools] rtree_run_dataset ({len(FORESTS)} trees, {n} frames) "
+          f"and rtree_run (one tree) equal to predict / predict_best + "
+          f"post_process; written as {os.path.splitext(files[0])[1]}",
+          flush=True)
+
+
+def _live_dataset(scene, root, depths, walls=120, repeat=150):
+    """A recording for ``live_demo``: ``walls`` frames of the empty scene
+    (4 s at the camera's 30 fps, so that frame 1, the background capture,
+    sees it) and then each of the 6 frames ``repeat`` times (slow motion,
+    30 s in all).  Repeats are hard links."""
+    from avatar_tpu_torch.io.dataset import DatasetWriter
+
+    w = DatasetWriter(root, scene.intrin, pad=4, use_exr=False)
+    name = lambda i: os.path.join(root, "depth_exr", f"depth_{i:04d}.depth")
+    firsts = [1] + [walls + 1 + k * repeat for k in range(len(depths))]
+    w.write_depth(1, np.full((H, W), scene.bg_m, np.float32))
+    for first, d in zip(firsts[1:], depths):
+        w.write_depth(first, d)
+    for first, n in zip(firsts, [walls] + [repeat] * len(depths)):
+        for j in range(1, n):
+            os.link(name(first), name(first + j))
+
+
+def _tools_live(tag, argv, frames):
+    """One ``live_demo.main`` run under the wall-clock limit: frames
+    tracked, frames ok, tracked frames per second and the camera thread's
+    share of the run (the time it spent in ``next_frame``)."""
+    from avatar_tpu_torch.tools import live_demo
+
+    stamps, results, busy = [], [], []
+    real_open = live_demo.open_camera
+
+    def open_camera(spec, **kw):
+        cam = real_open(spec, **kw)
+        produce = cam.next_frame
+
+        def timed():
+            t0 = time.perf_counter()
+            out = produce()
+            busy.append(time.perf_counter() - t0)
+            return out
+
+        cam.next_frame = timed
+        return cam
+
+    def on_frame(n, state, res):
+        stamps.append(time.perf_counter())
+        results.append(res)
+
+    live_demo.open_camera = open_camera
+    t0 = time.perf_counter()
+    try:
+        with _wall_limit(TOOLS_LIMIT_S, f"live_demo {tag}"):
+            live_demo.main(argv + ["--frames", str(frames)],
+                           on_frame=on_frame)
+    except RuntimeError as e:           # the capture thread died
+        fail(f"[live {tag}] {e}")
+    finally:
+        live_demo.open_camera = real_open
+    wall = time.perf_counter() - t0
+    tracked = [r for r in results if r is not None]
+    if len(results) != frames or len(tracked) != frames:
+        fail(f"[live {tag}] {len(results)} frames, {len(tracked)} tracked")
+    ok = sum(r.ok for r in tracked)
+    fps = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+    print(f"[live {tag}] {len(tracked)} frames tracked, {ok} ok, "
+          f"{fps:.2f} tracked frames per second (frame 1 to the last), "
+          f"{wall:.1f} s in all; camera thread in next_frame "
+          f"{sum(busy):.2f} s over {len(busy)} frames "
+          f"({sum(busy) / wall:.1%} of the run); per frame ok / n_points / "
+          "s after the start: " + ", ".join(
+              f"{int(r.ok)}/{r.n_points}/{t - t0:.1f}"
+              for r, t in zip(tracked, stamps)), flush=True)
+
+
+@contextlib.contextmanager
+def _tool_launches(calls: list, counts: dict):
+    """Record the block's B1 searches into ``calls`` and add the kernel
+    launches it makes to ``counts`` (the counts are reset before it)."""
+    from avatar_tpu_torch.optim import nn_kernel
+
+    _reset_counts()
+    with _recording(calls):
+        yield
+    for k, v in nn_kernel.LAUNCHES.items():
+        counts[k] = counts.get(k, 0) + v
+
+
+def phase_tools(scene):
+    """The camera-to-tracker tools on the card at 1280x720: the native
+    library, a dataset written and read, ``demo`` (host and fused),
+    ``rtree_run_dataset`` / ``rtree_run``, ``live_demo`` (synthetic camera
+    and a recording), and ``data_recording`` / ``smplsynth`` where OpenCV
+    is installed.  Returns the tools' kernel launches and the recorded
+    searches' largest d2 error."""
+    from avatar_tpu_torch.io.camera import SyntheticCamera
+
+    depths = [f.astype(np.float32) * 1e-3 for f in scene.frames]
+    _tools_native(scene, depths)
+    for size in ((360, 640), (H, W)):
+        cam = SyntheticCamera(image_size=size, device=scene.dev)
+        cam.next_frame()
+        print(f"[tools] SyntheticCamera.next_frame at {size[1]}x{size[0]}: "
+              f"{_timed_median_ms(cam.next_frame, 5):.2f} ms (median of 5)",
+              flush=True)
+    calls, launches, per_frame = [], {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "ds")
+        _write_dataset(scene, root, depths)
+        for fused in (False, True):
+            got = {}
+            _tools_demo(scene, root, fused, calls, got)
+            per_frame["demo fused" if fused else "demo host"] = (
+                got, len(depths))
+        _tools_segmentation(scene, root, depths)
+        live = os.path.join(tmp, "live")
+        _live_dataset(scene, live, depths)
+        # the recording's empty frames are lost fast: 24 frames reach the
+        # body's
+        for tag, argv, n in (
+                ("synthetic", ["--camera", "synthetic", "--synthetic-model",
+                               "2", "-I", "4", "-M", "200"], 8),
+                ("recording", [FORESTS[0], "--camera", live, "--fused",
+                               "--synthetic-model", "6", "-I", "6", "-t",
+                               "2", "-T", "6", "--inner-iters", "4",
+                               "--capture-bg-after", "1"], 24)):
+            got = {}
+            with _tool_launches(calls, got):
+                _tools_live(tag, argv, n)
+            per_frame[f"live {tag}"] = (got, n)
+    for tag, (got, n) in per_frame.items():
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"[tools] {tag}: kernel launches {got}, "
+              f"{got['nn_argmin_ranges'] / n:.1f} B1 per frame", flush=True)
+    if launches["nn_argmin_ranges"] <= 0:
+        fail("[tools] the tools never launched the nn_argmin_ranges kernel")
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        print("[tools] data_recording and smplsynth not run: they write RGB "
+              "frames, part masks and joint YAML through OpenCV, which is "
+              "not installed here", flush=True)
+    else:
+        from avatar_tpu_torch.tools import data_recording, smplsynth
+
+        with tempfile.TemporaryDirectory() as tmp:
+            data_recording.main([os.path.join(tmp, "rec"), "--camera",
+                                 "synthetic", "--frames", "3", "--fps", "0",
+                                 "--verify"])
+            smplsynth.main([os.path.join(tmp, "synth"), "-n", "2",
+                            "--batch", "2", "--synthetic-model", "6"])
+        print("[tools] data_recording --verify and smplsynth ran", flush=True)
+    return launches, _hold_recorded("tools", calls, scene.dev)
+
+
 # the scopes of items that every fused frame reaches, and of one LM step
 FRAME_SCOPES = ("bgsub", "forest_walk", "blob_suppress", "fit")
 LM_SCOPES = ("lbs", "vis", "nn", "weights", "jacobian", "gram", "solve",
@@ -1867,6 +2318,7 @@ def main():
     paths["host"] = tuple(host)
     paths["library"] = phase_library(scene, samples)
     phase_train(scene)
+    paths["tools"] = phase_tools(scene)
     *stages, lines = phase_stages(scene)
     paths["stages"] = tuple(stages)
     # every recorded launch of each path was held against the plain
@@ -1877,7 +2329,7 @@ def main():
 
     kernels = []
     for name, replaces, key in (
-            ("nn_argmin_ranges", "avatar_tpu/optim/nn_pallas.py:121",
+            ("nn_argmin_ranges", "avatar_tpu/optim/nn_pallas.py:123",
              ("nn_argmin_ranges", 8192)),
             ("nn_argmin", "avatar_tpu/optim/nn_pallas.py:170",
              ("nn_argmin", "8192 unplanned"))):

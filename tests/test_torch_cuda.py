@@ -600,3 +600,72 @@ def test_trace_attribution_on_card(cuda, tmp_path):
     assert out["scopes"]["fit"]["launches"] >= 8
     assert out["stages"]["fit"] > 0.8 * out["total_ms"]
     assert abs(sum(out["stages"].values()) - out["total_ms"]) <= 0.01
+
+
+@pytest.mark.cuda
+def test_synthetic_camera_on_card_matches_cpu(cuda):
+    """The synthetic camera rendering on the card against the same camera
+    on the CPU, from one seed: foreground masks differ on at most 3 edge
+    pixels per frame, XYZ within 1e-5 m where both are body, RGB within 1
+    grey level."""
+    from avatar_tpu_torch.io.camera import SyntheticCamera
+
+    size = (360, 640)
+    card = SyntheticCamera(image_size=size, seed=7, device=cuda)
+    cpu = SyntheticCamera(image_size=size, seed=7, device="cpu")
+    for _ in range(4):
+        (xg, rg), (xc, rc) = card.next_frame(), cpu.next_frame()
+        fg, fc = xg[..., 2] < card.wall_depth, xc[..., 2] < cpu.wall_depth
+        assert fc.sum() > 1000 and (fg != fc).sum() <= 3
+        np.testing.assert_allclose(xg[fg & fc], xc[fg & fc], rtol=0,
+                                   atol=1e-5)
+        assert np.abs(rg.astype(int) - rc.astype(int)).max() <= 1
+
+
+@pytest.mark.cuda
+def test_native_library_builds_into_build_dir(cuda):
+    """The host library builds with the card machine's C++ compiler into
+    ``avatar_tpu_torch/_build/`` and is what serves the codec."""
+    from pathlib import Path
+
+    from avatar_tpu_torch.native import build, rle
+
+    path = Path(build.build(verbose=False))
+    assert path.parent.name == "_build" and path.exists()
+    assert rle._load_native()._name == str(path)
+    d = np.zeros((6, 7), np.float32)
+    d[2:4, 3:] = 1.5
+    np.testing.assert_array_equal(rle.decode(rle.encode(d)), d)
+
+
+@pytest.mark.cuda
+def test_demo_on_card_launches_b1(cuda, tmp_path):
+    """``demo.main`` on the card (its default device) at 160x160, host and
+    fused, over frames rendered and a forest trained on the card."""
+    from avatar_tpu_torch.io.calibration import CameraIntrin
+    from avatar_tpu_torch.io.dataset import DatasetWriter
+    from avatar_tpu_torch.testing import synthetic_model
+    from avatar_tpu_torch.tools import demo, rtree_train
+    from avatar_tpu_torch.train import synth
+
+    cam = ["--width", "160", "--height", "160", "--fx", "140", "--fy",
+           "140", "--cx", "80", "--cy", "80"]
+    model = synthetic_model(detail=1, device=cuda)
+    intrin = CameraIntrin(fx=140.0, fy=140.0, cx=80.0, cy=80.0)
+    src = synth.make_source(model, intrin, n_images=3, seed=0)
+    depth, _, _ = synth.render_batch(src, model.parents, [0, 1, 2], 0, 160,
+                                     160, model.num_shape_keys())
+    ds = str(tmp_path / "ds")
+    w = DatasetWriter(ds, intrin, pad=8)
+    for i in range(3):
+        w.write_depth(i, depth[i].cpu().numpy())
+    tree = str(tmp_path / "t.srtr")
+    rtree_train.main([tree, "--synthetic-model", "1", "--images", "10",
+                      "--pixels", "200", "--features", "16", "--depth", "5",
+                      "--min-samples", "20", "--probe", "70", *cam, "-q"])
+    for fused in ([], ["--fused"]):
+        before = nn_kernel.LAUNCHES["nn_argmin_ranges"]
+        demo.main([ds, tree, "-i", "0", "-p", "8", "--synthetic-model", "1",
+                   "-I", "2", "-M", "100", "--max-frames", "3", *fused])
+        torch.cuda.synchronize()
+        assert nn_kernel.LAUNCHES["nn_argmin_ranges"] > before
