@@ -3,9 +3,14 @@
 Counterpart of ``avatar_tpu/tools/rtree_train.py`` (reference
 rtree-train.cpp, flags rtree-train.cpp:26-52).  Training runs on
 ``--device``, the card by default — see avatar_tpu_torch/train/forest.py.
+``--devices N`` > 1 spawns a world of N ranks, one process per device
+(N cards, or N CPU processes under gloo with ``--device cpu``); rank 0
+writes the forest.
 
     python -m avatar_tpu_torch.tools.rtree_train OUT.srtr \\
         --synthetic-model 2 --images 200 --features 128 --depth 13
+    python -m avatar_tpu_torch.tools.rtree_train OUT.srtr \\
+        --synthetic-model 1 --images 16 --devices 2 --device cpu
 """
 
 from __future__ import annotations
@@ -14,12 +19,15 @@ import argparse
 import os
 import sys
 
+import torch
+import torch.distributed as dist
+
+from avatar_tpu_torch.device import get_device
 from avatar_tpu_torch.io import formats
 from avatar_tpu_torch.io.calibration import CameraIntrin
 from avatar_tpu_torch.perception.rtree import RTree
 from avatar_tpu_torch.tools.common import (add_model_args, load_model,
                                            load_pose_seq)
-from avatar_tpu_torch.train.forest import MESH_MESSAGE
 
 
 def build_parser():
@@ -54,8 +62,13 @@ def build_parser():
                     help="resumable training state path (saved every level "
                          "and on SIGINT, like the reference's RTREE_V3)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="shard training over the first N devices (0 = one "
-                         "device).  Not ported yet: any N > 0 is refused")
+                    help="train over N devices, one process each in a "
+                         "torch.distributed world (NCCL on the card, gloo "
+                         "with --device cpu): data-parallel image batches, "
+                         "all-reduced count tensors; 0 = one device, no "
+                         "process group.  The trained tree is the "
+                         "one-device tree.  The analogue of the reference's "
+                         "--num-threads (RTree.cpp:1700-1704 mutex-reduce)")
     ap.add_argument("--data", default="",
                     help="train from a recorded dataset dir containing "
                          "depth_exr/ + part_mask/ instead of synthetic "
@@ -65,10 +78,27 @@ def build_parser():
     return ap
 
 
+def _launch(args, argv) -> None:
+    """Run this tool on every rank of a world of ``args.devices``."""
+    dev = get_device(args.device)
+    if dev.type == "cuda" and args.devices > torch.cuda.device_count():
+        sys.exit(f"--devices {args.devices}: {torch.cuda.device_count()} "
+                 "CUDA device(s) visible; a world of "
+                 f"{args.devices} ranks needs one card per rank")
+    from avatar_tpu_torch.parallel.training import run_world
+
+    run_world(main, args.devices, dev,
+              list(sys.argv[1:] if argv is None else argv), timeout_s=None)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.devices > 0:
-        sys.exit(f"--devices {args.devices}: {MESH_MESSAGE}")
+    if args.devices > 1 and not dist.is_initialized():
+        _launch(args, argv)
+        return
+    if args.devices and args.data:
+        sys.exit("--devices trains on synthetic renders; --data trains on "
+                 "one device, as the reference's does")
     part_map = None
     num_parts = args.num_parts
     pm_type = 0
@@ -76,8 +106,9 @@ def main(argv=None):
         part_map, num_parts, pm_type = formats.read_partmap(args.part_map)
 
     tree = RTree(num_parts, device=args.device)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     common = dict(
-        verbose=not args.quiet, num_images=args.images,
+        verbose=lead and not args.quiet, num_images=args.images,
         num_points_per_image=args.pixels, num_features=args.features,
         max_probe_offset=args.probe, min_samples=args.min_samples,
         max_tree_depth=args.depth, threshes_per_feature=args.threshes,
@@ -92,7 +123,9 @@ def main(argv=None):
         pose_seq = load_pose_seq(args.pose_seq) if args.pose_seq else None
         tree.train_from_avatar(model, pose_seq, intrin,
                                (args.height, args.width), part_map=part_map,
-                               **common)
+                               devices=args.devices, **common)
+    if not lead:
+        return      # rank 0 writes the forest
     tree.partmap_type = pm_type
     tree.export_file(args.output)
     print(f"wrote {args.output} ({tree.forest.num_nodes} nodes)")

@@ -814,6 +814,20 @@ class FusedTracker:
     def _run(self, xyz, labels, n_steps, use_window=True,
              render_labels=True, is_reinit=False, reinit_gated=False,
              refine=False, fit_shape=False) -> FrameOut:
+        kw = self._frame_kwargs(n_steps, use_window, render_labels,
+                                is_reinit, reinit_gated, refine, fit_shape)
+        with scope(FRAME_SCOPE):
+            return _fused_frame_impl(
+                self._ctx, self._ctx_fit, self._tree, self.model.parents, xyz,
+                labels, self._bg, self._intrin4, self._theta, self.com_pre,
+                **kw)
+
+    def _frame_kwargs(self, n_steps, use_window=True, render_labels=True,
+                      is_reinit=False, reinit_gated=False, refine=False,
+                      fit_shape=False) -> dict:
+        """The keyword arguments of ``_fused_frame_impl`` after
+        ``com_pre`` for one frame of this tracker (``theta_prev`` is the
+        tracker's velocity anchor)."""
         c = self.config
         hs = self._host_stride
         window = None
@@ -826,40 +840,38 @@ class FusedTracker:
             n_data = (-(-window[0] // dsub)) * (-(-window[1] // dsub))
             pad_n, boost_n, wild_n = self._fit_bucket(n_data)
         k = self._consts()
-        with scope(FRAME_SCOPE):
-            return _fused_frame_impl(
-                self._ctx, self._ctx_fit, self._tree, self.model.parents, xyz,
-                labels, self._bg, self._intrin4, self._theta, self.com_pre,
-                k["beta_pose"], k["beta_shape"], k["nn_t"], k["nb_t"],
-                k["min_cc"], k["d2p"], seg_stride=self._seg_stride,
-                data_substride=self._data_substride, n_steps=n_steps,
-                num_parts=self.num_parts, max_depth=self._max_depth,
-                use_forest=self.rtree is not None, use_bgsub=self._use_bgsub,
-                use_jsr=self.model.use_joint_shape_regressor, pad_n=pad_n,
-                seg_window=window, conf_thresh=k["conf_vec"],
-                point_weight=k["point_weight"], plane_weight=k["plane_weight"],
-                huber_k=k["huber_k"], robust_per_part=c.robust_per_part,
-                use_render_labels=(render_labels and c.render_labels and
-                                   self.rtree is not None),
-                render_tau=k["render_tau"],
-                # the temporal prior and the motion clamp would fight the
-                # exploration a reinit fit exists to do
-                beta_temp=k["zero"] if is_reinit else k["beta_temp"],
-                clamp_angle=k["zero"] if is_reinit else k["clamp_angle"],
-                boost_n=boost_n, boost_groups=tuple(c.extremity_boost_groups),
-                # steady-state frames solve in the reduced [dp | dr] tangent
-                freeze_shape=not (is_reinit or fit_shape),
-                fit_sorted=self._fit_sorted, wild_n=wild_n,
-                wild_gate=k["wild_gate"], wild_weight=k["wild_weight"],
-                sel_walk=float(c.selective_walk),
-                # no valid prior pose during a cold (re)init -> gate off
-                body_gate=(k["body_gate"] if (not is_reinit or reinit_gated)
-                           else k["zero"]),
-                ring_faces=self._ring if refine else None,
-                refine_steps=c.refine_steps if refine else 0,
-                refine_beta=k["refine_beta"],
-                theta_prev=self._theta if is_reinit else self._theta_prev,
-                extrap=k["extrap"])
+        return dict(
+            beta_pose=k["beta_pose"], beta_shape=k["beta_shape"],
+            nn_t=k["nn_t"], nb_t=k["nb_t"], min_cc_pts=k["min_cc"],
+            dist_to_pre_weight=k["d2p"], seg_stride=self._seg_stride,
+            data_substride=self._data_substride, n_steps=n_steps,
+            num_parts=self.num_parts, max_depth=self._max_depth,
+            use_forest=self.rtree is not None, use_bgsub=self._use_bgsub,
+            use_jsr=self.model.use_joint_shape_regressor, pad_n=pad_n,
+            seg_window=window, conf_thresh=k["conf_vec"],
+            point_weight=k["point_weight"], plane_weight=k["plane_weight"],
+            huber_k=k["huber_k"], robust_per_part=c.robust_per_part,
+            use_render_labels=(render_labels and c.render_labels and
+                               self.rtree is not None),
+            render_tau=k["render_tau"],
+            # the temporal prior and the motion clamp would fight the
+            # exploration a reinit fit exists to do
+            beta_temp=k["zero"] if is_reinit else k["beta_temp"],
+            clamp_angle=k["zero"] if is_reinit else k["clamp_angle"],
+            boost_n=boost_n, boost_groups=tuple(c.extremity_boost_groups),
+            # steady-state frames solve in the reduced [dp | dr] tangent
+            freeze_shape=not (is_reinit or fit_shape),
+            fit_sorted=self._fit_sorted, wild_n=wild_n,
+            wild_gate=k["wild_gate"], wild_weight=k["wild_weight"],
+            sel_walk=float(c.selective_walk),
+            # no valid prior pose during a cold (re)init -> gate off
+            body_gate=(k["body_gate"] if (not is_reinit or reinit_gated)
+                       else k["zero"]),
+            ring_faces=self._ring if refine else None,
+            refine_steps=c.refine_steps if refine else 0,
+            refine_beta=k["refine_beta"],
+            theta_prev=self._theta if is_reinit else self._theta_prev,
+            extrap=k["extrap"])
 
     # the per-frame tracking state, all of which warmup() leaves untouched
     _WARM_STATE = ("_theta", "_theta_prev", "com_pre", "reinit", "first_init",

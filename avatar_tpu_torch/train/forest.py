@@ -29,7 +29,10 @@ either package resumes in the other when the frames come from a shared
 frame source (the two packages' synthetic generators draw from different
 random streams).
 
-Training over several devices (``mesh`` / ``devices``) is not ported.
+Over several devices (``mesh``, from ``parallel/training.py``; ``devices``)
+every rank of the process group holds rank 0's frame cache and samples,
+each image batch is split over the ranks, and the per-rank min/max and
+counts are all-reduced, so every rank grows the one-device tree.
 """
 
 from __future__ import annotations
@@ -49,8 +52,13 @@ from avatar_tpu_torch.train import synth
 
 BACKGROUND_DEPTH = 20.0
 _BIG = 3e38
-MESH_MESSAGE = ("training over several devices (mesh / devices > 0) is not "
-                 "ported yet (ROADMAP A6: parallel/training.py)")
+
+
+def _placed(dev: torch.device) -> torch.device:
+    """``dev`` with the index a bare ``cuda`` stands for."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 class Samples(NamedTuple):
@@ -544,6 +552,13 @@ class ForestTrainer:
     nodes, the samples in them, probe evaluations (sample x feature scores
     computed) and wall seconds; ``init_seconds`` is the wall time of
     rendering (or loading) and sampling the frames.
+
+    With a ``mesh`` (``parallel.training.make_mesh``) every rank of its
+    process group runs this trainer with the same arguments on its own
+    device: rank 0 renders and samples the frames and every rank receives
+    them, the passes run image-major (``"auto"`` means ``"batch"``) with
+    the image batch rounded up to a multiple of the mesh size and split
+    over the ranks, and only rank 0 writes checkpoints and handles SIGINT.
     """
 
     def __init__(self, model, intrin, image_size, num_parts: int,
@@ -559,11 +574,13 @@ class ForestTrainer:
                  feature_block: int = 256, sample_balance: float = 0.5,
                  pass_mode: str = "auto",
                  device: str | torch.device | None = None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_MESSAGE)
         if device is None:
             device = model.device if model is not None else "cuda"
         self.device = get_device(device)
+        self.mesh = mesh
+        if mesh is not None and _placed(self.device) != _placed(mesh.device):
+            raise ValueError(f"the trainer's device {self.device} is not the "
+                             f"mesh rank's device {mesh.device}")
         self.model = model
         self.H, self.W = image_size
         self.num_parts = num_parts
@@ -603,12 +620,20 @@ class ForestTrainer:
         self._panic = False
         # pass_mode: "flat" (sample-major: a level costs live samples x
         # features whatever the frontier's size) / "batch" (image-major:
-        # every node chunk scans every cached image) / "auto" (flat).  The
-        # flat passes index the flattened cache with int64, so no cache is
-        # too large for them.
+        # every node chunk scans every cached image; shards over a mesh) /
+        # "auto" (flat unless a mesh is given).  The flat passes index the
+        # flattened cache with int64, so no cache is too large for them.
         if pass_mode not in ("auto", "flat", "batch"):
             raise ValueError(f"unknown pass_mode {pass_mode!r}")
-        self.pass_mode = "flat" if pass_mode == "auto" else pass_mode
+        if pass_mode == "auto":
+            pass_mode = "batch" if mesh is not None else "flat"
+        if mesh is not None and pass_mode == "flat":
+            raise ValueError("mesh training requires pass_mode='batch' "
+                             "(image batches shard over the mesh)")
+        self.pass_mode = pass_mode
+        if mesh is not None:
+            # every sharded pass splits the image batch over the ranks
+            self.B = -(-self.B // mesh.size) * mesh.size
         # sample-block sizes for the flat passes (the scores [BLK, F] and
         # the probe index tensors bound peak memory)
         self._blk_dense = 1 << 17
@@ -624,6 +649,11 @@ class ForestTrainer:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    @property
+    def _lead(self) -> bool:
+        """Rank 0 of the mesh, or the one trainer without one."""
+        return self.mesh is None or self.mesh.rank == 0
 
     # -- data -----------------------------------------------------------------
 
@@ -650,8 +680,14 @@ class ForestTrainer:
 
         Device-rendered synthetic frames never leave the device: the cache
         is filled in place and the weighted pixel sampling runs there.
-        Frames of a host source use the host sampler.
+        Frames of a host source use the host sampler.  Over a mesh, rank 0
+        does this and the other ranks receive its frames and samples.
         """
+        if not self._lead:
+            self._empty_frames(samples=True)
+            self._share_frames(samples=True)
+            self._init_node_of()
+            return
         on_device = self.frame_source is None
         xs, ys, ps, vs = [], [], [], []
         cache = []
@@ -695,14 +731,44 @@ class ForestTrainer:
             self.samples = Samples(
                 x=self._t(np.stack(xs)), y=self._t(np.stack(ys)),
                 part=self._t(np.stack(ps)), valid=self._t(np.stack(vs)))
+        if self.mesh is not None:
+            self._share_frames(samples=True)
+        self._init_node_of()
+
+    def _init_node_of(self) -> None:
         self.node_of = np.zeros((self.num_images, self.S), np.int32)
         self.node_of[~self.samples.valid.cpu().numpy()] = -1
+
+    def _empty_frames(self, samples: bool) -> None:
+        """A frame cache (and samples) of the right shapes and places, for
+        a rank that receives rank 0's."""
+        if self.frame_source is None:
+            self._depth_cache = self._new_cache()
+        else:
+            self._set_depth_cache(np.zeros(
+                (self.num_images, self.H, self.W), np.uint16))
+        if samples:
+            z = lambda dt: torch.zeros((self.num_images, self.S), dtype=dt,
+                                       device=self.device)
+            self.samples = Samples(x=z(torch.int32), y=z(torch.int32),
+                                   part=z(torch.int32), valid=z(torch.bool))
+
+    def _share_frames(self, samples: bool) -> None:
+        """Rank 0's frame cache (and samples) on every rank, in place: the
+        ranks train on one set of frames, so the host bookkeeping runs the
+        same on each from the reduced counts."""
+        from avatar_tpu_torch.parallel.training import broadcast_
+
+        for t in (self._depth_cache, *(self.samples if samples else ())):
+            broadcast_(self.mesh, t)
 
     # -- checkpointing (RTREE_V2/V3-style resumable state) ---------------------
 
     def save_checkpoint(self, path: Optional[str] = None) -> None:
+        """Write the resumable state (over a mesh, rank 0 alone writes;
+        every rank can resume from the file)."""
         path = path or self.checkpoint_path
-        if not path:
+        if not path or not self._lead:
             return
         fd = self.tree.to_forest()
         tmp = path + ".partial"
@@ -762,13 +828,15 @@ class ForestTrainer:
             self.frontier_depth = [self.max_depth]
             self.level = 0
 
-        old_handler = signal.signal(signal.SIGINT, self._sigint)
+        # over a mesh, rank 0 handles SIGINT and the others ignore it
+        old_handler = signal.signal(
+            signal.SIGINT, self._sigint if self._lead else signal.SIG_IGN)
         try:
             while self.frontier:
                 self._train_level()
                 self.level += 1
                 self.save_checkpoint()
-                if self._panic:
+                if self._stop_requested():
                     break
         finally:
             signal.signal(signal.SIGINT, old_handler)
@@ -778,6 +846,17 @@ class ForestTrainer:
         # cooperative panic-save (reference RTree.cpp:2950-2957)
         print("[forest] SIGINT: saving checkpoint after this level...")
         self._panic = True
+
+    def _stop_requested(self) -> bool:
+        """The SIGINT flag; over a mesh, rank 0's, so that every rank stops
+        after the same level."""
+        if self.mesh is None:
+            return self._panic
+        from avatar_tpu_torch.parallel.training import broadcast_
+
+        flag = torch.tensor([int(self._panic)], dtype=torch.int32,
+                            device=self.mesh.device)
+        return bool(broadcast_(self.mesh, flag).item())
 
     def _set_depth_cache(self, cache_np: np.ndarray) -> None:
         """Put a host-made uint16-mm frame cache on the device when it
@@ -794,6 +873,10 @@ class ForestTrainer:
             self._depth_cache = bits.to(self.device)
 
     def _rebuild_depth_cache(self):
+        if not self._lead:
+            self._empty_frames(samples=False)
+            self._share_frames(samples=False)
+            return
         on_device = self.frame_source is None
         caches = []
         if on_device:
@@ -810,10 +893,64 @@ class ForestTrainer:
                       f"/{self.num_images} images (resume)")
         if not on_device:
             self._set_depth_cache(np.concatenate(caches, axis=0))
+        if self.mesh is not None:
+            self._share_frames(samples=False)
 
     def _cache_slab(self, sl) -> torch.Tensor:
         """f32-metre view on the device of a slab of cached frames."""
         return _decode_mm(self._depth_cache[sl].to(self.device))
+
+    # -- mesh dispatch: image batches shard over the ranks -------------------
+    #
+    # With a mesh, every level pass runs on each rank's block of the image
+    # batch and the per-rank min/max/counts are all-reduced (MIN, MAX,
+    # SUM): the reduction TrainerV2 does with a mutex (RTree.cpp:1700-1704).
+    # The counts are whole numbers in float32, so their sum is exact and
+    # the tree equals the one-device tree.
+
+    def _pad_b(self, a: torch.Tensor, fill=0) -> torch.Tensor:
+        """Pad a batch-leading tensor (a short last batch) to a multiple of
+        the mesh size; the padded rows are not valid samples."""
+        n = a.shape[0]
+        pad = -n % self.mesh.size
+        if pad == 0:
+            return a
+        return torch.cat([a, a.new_full((pad, *a.shape[1:]), fill)])
+
+    def _p_minmax(self, slab, sx, sy, valid, nl, fu, fv, NC: int):
+        if self.mesh is None:
+            return pass_minmax(slab, sx, sy, valid, nl, fu, fv, NC)
+        from avatar_tpu_torch.parallel import training as ptrain
+
+        return ptrain.sharded_pass_minmax(
+            self.mesh, self._pad_b(slab), self._pad_b(sx), self._pad_b(sy),
+            self._pad_b(valid), self._pad_b(nl, -1), fu, fv, NC,
+            axis=self.mesh.axis)
+
+    def _p_counts(self, slab, sx, sy, part, valid, nl, fu, fv, smin, smax,
+                  NC: int, T: int, P: int):
+        if self.mesh is None:
+            return pass_counts(slab, sx, sy, part, valid, nl, fu, fv,
+                               smin, smax, NC, T, P)
+        from avatar_tpu_torch.parallel import training as ptrain
+
+        return ptrain.sharded_pass_counts(
+            self.mesh, self._pad_b(slab), self._pad_b(sx), self._pad_b(sy),
+            self._pad_b(part), self._pad_b(valid), self._pad_b(nl, -1),
+            fu, fv, smin, smax, NC, T, P, axis=self.mesh.axis)
+
+    def _p_assign(self, slab, sx, sy, valid, node, bu, bv, bt, bl, br,
+                  isp):
+        if self.mesh is None:
+            return pass_assign(slab, sx, sy, valid, node, bu, bv, bt, bl,
+                               br, isp)
+        from avatar_tpu_torch.parallel import training as ptrain
+
+        out = ptrain.sharded_pass_assign(
+            self.mesh, self._pad_b(slab), self._pad_b(sx), self._pad_b(sy),
+            self._pad_b(valid), self._pad_b(node), bu, bv, bt, bl, br, isp,
+            axis=self.mesh.axis)
+        return out[:slab.shape[0]]
 
     def _train_level(self):
         frontier = self.frontier
@@ -903,13 +1040,13 @@ class ForestTrainer:
         smin = torch.full((NC, F), _BIG, device=self.device)
         smax = torch.full((NC, F), -_BIG, device=self.device)
         for sl in slabs:
-            mn, mx = pass_minmax(self._cache_slab(sl), s.x[sl], s.y[sl],
-                                 s.valid[sl], node_local[sl], fu, fv, NC)
+            mn, mx = self._p_minmax(self._cache_slab(sl), s.x[sl], s.y[sl],
+                                    s.valid[sl], node_local[sl], fu, fv, NC)
             smin = torch.minimum(smin, mn)
             smax = torch.maximum(smax, mx)
         counts = torch.zeros((NC, F, T, self.num_parts), device=self.device)
         for sl in slabs:
-            counts = counts + pass_counts(
+            counts = counts + self._p_counts(
                 self._cache_slab(sl), s.x[sl], s.y[sl], s.part[sl],
                 s.valid[sl], node_local[sl], fu, fv, smin, smax, NC, T,
                 self.num_parts)
@@ -942,8 +1079,8 @@ class ForestTrainer:
         s = self.samples
         for sl in slabs:
             node = self._t(np.maximum(self.node_of[sl], 0))
-            new_node = pass_assign(self._cache_slab(sl), s.x[sl], s.y[sl],
-                                   s.valid[sl], node, *split_t)
+            new_node = self._p_assign(self._cache_slab(sl), s.x[sl],
+                                      s.y[sl], s.valid[sl], node, *split_t)
             upd = new_node.cpu().numpy()
             live = self.node_of[sl] >= 0
             block = self.node_of[sl]
@@ -1113,10 +1250,11 @@ def train_from_avatar(rtree, avatar_model, pose_seq, intrin, image_size,
     selection (sparse-score the num_features pool, dense-count only the
     per-node top survivors; RTree.cpp:1396-2335).  Thread/memory arguments
     (num_threads, max_images_loaded, mem_limit_mb) are accepted for CLI
-    parity and ignored: the frame cache lives on the device.
+    parity and ignored: the frame cache lives on the device.  ``devices``
+    > 0 trains over the current process group, which must hold that many
+    ranks (``parallel.training.run_world``), or over a world of one when
+    it is 1.
     """
-    if devices:
-        raise NotImplementedError(MESH_MESSAGE)
     if max_images_loaded or mem_limit_mb:
         import logging
 
@@ -1130,17 +1268,27 @@ def train_from_avatar(rtree, avatar_model, pose_seq, intrin, image_size,
     # fixed threshes_per_feature buckets.
     filter_subsample = (max(1, round(1.0 / frac_samples_per_feature))
                         if frac_samples_per_feature > 0 else 4)
-    trainer = ForestTrainer(
-        avatar_model, intrin, image_size, rtree.num_parts,
-        part_map=part_map, pose_seq=pose_seq, num_images=num_images,
-        num_points_per_image=num_points_per_image, num_features=num_features,
-        max_probe_offset=max_probe_offset, min_samples=min_samples,
-        max_tree_depth=max_tree_depth, n_buckets=threshes_per_feature,
-        seed=seed, verbose=verbose,
-        checkpoint_path=train_partial_save_path,
-        num_features_filtered=num_features_filtered,
-        filter_subsample=filter_subsample)
-    fd = trainer.train(resume_from=train_partial_save_path)
+    mesh = None
+    if devices:
+        from avatar_tpu_torch.parallel.training import make_mesh
+
+        mesh = make_mesh(devices, device=getattr(avatar_model, "device",
+                                                 None))
+    try:
+        trainer = ForestTrainer(
+            avatar_model, intrin, image_size, rtree.num_parts,
+            part_map=part_map, pose_seq=pose_seq, num_images=num_images,
+            num_points_per_image=num_points_per_image,
+            num_features=num_features, max_probe_offset=max_probe_offset,
+            min_samples=min_samples, max_tree_depth=max_tree_depth,
+            n_buckets=threshes_per_feature, seed=seed, verbose=verbose,
+            checkpoint_path=train_partial_save_path,
+            num_features_filtered=num_features_filtered,
+            filter_subsample=filter_subsample, mesh=mesh)
+        fd = trainer.train(resume_from=train_partial_save_path)
+    finally:
+        if mesh is not None:
+            mesh.close()
     rtree.set_forest(fd)
     rtree.part_map = list(part_map) if part_map is not None else []
 

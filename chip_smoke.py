@@ -125,8 +125,31 @@ each (any failure exits non-zero and prints no result):
    ``--capture-bg-after 1``: frames tracked, ok, per second, and the
    camera thread's share.  ``SyntheticCamera.next_frame`` ms at 360x640
    and 720p.  ``data_recording`` and ``smplsynth`` run only where OpenCV
-   is installed.  Every B1 launch of the tools is held against the plain
-   version to the bit.
+   is installed.  Then the model tools at the card's defaults:
+   ``optim_tool --synthetic-model 6`` at 512x512 (vertex RMSE must fall;
+   printed beside the reference test's 80 mm bar, with its wall time and
+   B1 launches), ``smpltrim`` (the trimmed model loads and poses on the
+   card), ``smpl_viewer`` in each ``--mode``, ``face_landmark_tracking``
+   over the recording (a line per frame); ``scratch`` and ``smpl_viewer
+   --interactive`` only where matplotlib imports (a skip is printed).
+   Every B1 launch of the tools, and of ``optim_tool`` apart, is held
+   against the plain version to the bit.
+10c. mesh — the multi-device layer over a world of one (NCCL: the machine
+   has one card, and NCCL puts no two ranks on one GPU).  (a)
+   ``ForestTrainer(mesh=make_mesh(1))`` by phase 10's recipe at its widths
+   and scale grows, node for node, the tree of batch mode without a mesh:
+   both wall times, per-level wall times and the all-reduces' and
+   all-gathers' device ms per level.  (b) ``rtree_train --devices 1``
+   writes the bytes of ``--devices 0`` (1280x720, 32 images, depth 6);
+   ``--devices 2`` exits naming the one visible card.  (c)
+   ``sharded_track_step`` with a stream per fixture frame 1 and 2 from
+   the reference's state (1280x720, the bench's config, the 3-tree r5
+   forest, bgsub): each stream's theta, labels and host_diag equal
+   ``_fused_frame_impl`` called directly on it, to the bit, its joints
+   within 5 mm of the reference's synced frame; ms per stream beside
+   ``FusedTracker.track``'s.  Its B1 launches are held against the plain
+   version.  (d) ``sharded_multistream_lbs`` equals ``lbs_batched`` to the
+   bit.
 11. stages — where a tracked frame's time goes.  The fused tracker as a
    user drives it (``set_background``, ``warmup``, ``open_metrics``,
    ``track`` over the 6 frames, ``close_metrics``), the accuracy mode and
@@ -161,7 +184,8 @@ each (any failure exits non-zero and prints no result):
    wall ms.
 
 The kernel counts are reset before each main path (phases 4, 6, 7, 8, 9,
-each tool run of 10b, and 11) and read after it.  The paths search through the fused entry
+each tool run of 10b, the sharded track step of 10c, and 11) and read
+after it.  The paths search through the fused entry
 (``nn_kernel.nn_match``); every recorded search is run again through the
 fused and the raw entry and must equal the plain version: indices equal
 and d2 equal to the last bit.  The line before the last is the kernels'
@@ -1774,13 +1798,118 @@ def _tool_launches(calls: list, counts: dict):
         counts[k] = counts.get(k, 0) + v
 
 
+def _tools_models(scene, root, calls, launches):
+    """The model tools at the card's defaults: ``optim_tool`` (the
+    synthetic-GT fit; its B1 searches go to ``calls``, its launches to
+    ``launches``), ``smpltrim``, ``smpl_viewer`` in each mode,
+    ``face_landmark_tracking`` over the recording at ``root``, and, where
+    matplotlib imports, ``scratch`` and ``smpl_viewer --interactive``."""
+    import io
+
+    import torch
+
+    from avatar_tpu_torch.core.model import Avatar, AvatarModel
+    from avatar_tpu_torch.tools import (face_landmark_tracking, optim_tool,
+                                        smpl_viewer, smpltrim)
+
+    def printed(fn, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn(argv)
+        return out, buf.getvalue()
+
+    t0 = time.perf_counter()
+    with _tool_launches(calls, launches):
+        post, text = printed(optim_tool.main, ["--synthetic-model", "6"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    line = next(ln for ln in text.splitlines() if ln.startswith("vertex"))
+    pre = float(line.split()[2]) * 1e-3
+    if not (np.isfinite(post) and post < pre):
+        fail(f"[tools] optim_tool: vertex RMSE {pre} -> {post} m did not "
+             "fall")
+    if launches.get("nn_argmin_ranges", 0) <= 0:
+        fail("[tools] optim_tool never launched B1")
+    print(f"[tools] optim_tool --synthetic-model 6 at 512x512 (the card's "
+          f"defaults, 100 LM steps): {line.strip()} (the reference test's "
+          f"bar: under 80 mm), {wall:.2f} s wall; kernel launches "
+          f"{launches}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trim = os.path.join(tmp, "trim")
+        smpltrim.main([trim, "--synthetic-model", "6", "-d", "L_HIP", "-d",
+                       "R_HIP"])
+        m = AvatarModel(trim, device=scene.dev)
+        ava = Avatar(m)
+        ava.update()
+        if m.num_joints() != 16 or not np.isfinite(ava.cloud).all():
+            fail(f"[tools] smpltrim's model: {m.num_joints()} joints, or "
+                 "its posed cloud not finite")
+        body = {}
+        for mode in ("lambert", "depth", "parts"):
+            out = os.path.join(tmp, f"{mode}.png")
+            smpl_viewer.main(["-o", out, "--synthetic-model", "6",
+                              "--random", "3", "--mode", mode])
+            if os.path.exists(out):
+                import cv2
+
+                img = cv2.imread(out, cv2.IMREAD_UNCHANGED)
+            else:
+                img = np.load(out + ".npy")
+            fg = img != 0
+            body[mode] = int((fg.any(-1) if fg.ndim == 3 else fg).sum())
+            if body[mode] < 1000:
+                fail(f"[tools] smpl_viewer --mode {mode}: {body[mode]} body "
+                     "pixels")
+        print(f"[tools] smpltrim: {m.num_points()} of "
+              f"{scene.model.num_points()} vertices and 16 joints, loaded and"
+              f" posed on the card; smpl_viewer at 512x512, body pixels per "
+              f"mode {body}", flush=True)
+        _, text = printed(face_landmark_tracking.main,
+                          [root, "--max-frames", str(len(scene.frames))])
+        lines = [ln for ln in text.splitlines() if ln.startswith("frame")]
+        if len({ln.split()[1].rstrip(":") for ln in lines}) != \
+                len(scene.frames):
+            fail(f"[tools] face_landmark_tracking printed {lines}")
+        print(f"[tools] face_landmark_tracking over the recording: "
+              f"{len(lines)} lines for {len(scene.frames)} frames, first: "
+              f"{lines[0]}", flush=True)
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            print("[tools] scratch and smpl_viewer --interactive skipped: "
+                  "matplotlib is not installed here", flush=True)
+            return
+        from avatar_tpu_torch.tools import scratch
+
+        display = os.environ.pop("DISPLAY", None)     # plot to files
+        try:
+            shots = [os.path.join(tmp, "scratch.png"),
+                     os.path.join(tmp, "iview.png")]
+            printed(scratch.main, ["-o", shots[0], "--synthetic-model", "6",
+                                   "--random", "5"])
+            printed(smpl_viewer.main, ["-o", shots[1], "--synthetic-model",
+                                       "6", "--interactive",
+                                       "--lbs-weights-of", "4"])
+        finally:
+            if display is not None:
+                os.environ["DISPLAY"] = display
+        sizes = [os.path.getsize(p) if os.path.exists(p) else 0
+                 for p in shots]
+        if min(sizes) == 0:
+            fail(f"[tools] scratch / smpl_viewer --interactive wrote {sizes}")
+        print(f"[tools] scratch and smpl_viewer --interactive wrote "
+              f"{sizes} bytes of PNG (matplotlib, headless)", flush=True)
+
+
 def phase_tools(scene):
     """The camera-to-tracker tools on the card at 1280x720: the native
     library, a dataset written and read, ``demo`` (host and fused),
     ``rtree_run_dataset`` / ``rtree_run``, ``live_demo`` (synthetic camera
-    and a recording), and ``data_recording`` / ``smplsynth`` where OpenCV
-    is installed.  Returns the tools' kernel launches and the recorded
-    searches' largest d2 error."""
+    and a recording), ``data_recording`` / ``smplsynth`` where OpenCV is
+    installed; then the model tools (``_tools_models``).  Returns, for the
+    camera-to-tracker tools and for ``optim_tool``, the kernel launches and
+    the recorded searches' largest d2 error."""
     from avatar_tpu_torch.io.camera import SyntheticCamera
 
     depths = [f.astype(np.float32) * 1e-3 for f in scene.frames]
@@ -1816,6 +1945,8 @@ def phase_tools(scene):
             with _tool_launches(calls, got):
                 _tools_live(tag, argv, n)
             per_frame[f"live {tag}"] = (got, n)
+        optim_calls, optim_launches = [], {}
+        _tools_models(scene, root, optim_calls, optim_launches)
     for tag, (got, n) in per_frame.items():
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
@@ -1839,7 +1970,270 @@ def phase_tools(scene):
             smplsynth.main([os.path.join(tmp, "synth"), "-n", "2",
                             "--batch", "2", "--synthetic-model", "6"])
         print("[tools] data_recording --verify and smplsynth ran", flush=True)
-    return launches, _hold_recorded("tools", calls, scene.dev)
+    return ((launches, _hold_recorded("tools", calls, scene.dev)),
+            (optim_launches, _hold_recorded("optim_tool", optim_calls,
+                                            scene.dev)))
+
+
+@contextlib.contextmanager
+def _timed_collectives(log: list):
+    """CUDA events around every all-reduce and all-gather of the sharded
+    passes: ``log`` gets (start event, end event)."""
+    import torch
+
+    from avatar_tpu_torch.parallel import training as ptrain
+
+    real = {n: getattr(ptrain, n) for n in ("_reduce", "_gather")}
+
+    def timed(fn):
+        def run(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            log.append((start, end))
+            return out
+        return run
+
+    for n, fn in real.items():
+        setattr(ptrain, n, timed(fn))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(ptrain, n, fn)
+
+
+def _mesh_train(scene, images, depth):
+    """(a) the bench recipe over a world of one, against batch mode with
+    no mesh: the same tree, node for node."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import train_bench_forest_torch as bench
+
+    from avatar_tpu_torch.parallel.training import make_mesh
+
+    model = scene.model
+    t0 = time.perf_counter()
+    fd_b, tr_b = bench.train_bench_tree(model, images, depth,
+                                        pass_mode="batch")
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    log, marks = [], []
+    with make_mesh(1, device=scene.dev) as mesh, _timed_collectives(log):
+        backend = dist_backend()
+        if (mesh.size, backend) != (1, "nccl" if scene.dev.type == "cuda"
+                                    else "gloo"):
+            fail(f"[mesh] the world of one is {mesh} over {backend}")
+        trainer = bench.make_trainer(model, images, depth, mesh=mesh)
+        level = trainer._train_level
+
+        def mark_level():
+            marks.append(len(log))
+            level()
+
+        trainer._train_level = mark_level
+        t0 = time.perf_counter()
+        fd_m = trainer.train()
+        torch.cuda.synchronize()
+        wall_m = time.perf_counter() - t0
+    marks.append(len(log))
+    fd_m.u, fd_m.v = fd_m.u * 3.0, fd_m.v * 3.0
+    diff = _tree_diff(fd_m, fd_b)
+    if (trainer.pass_mode, trainer.B) != ("batch", 72):
+        fail(f"[mesh] the mesh trainer runs {trainer.pass_mode} passes of "
+             f"{trainer.B} images")
+    if diff or fd_m.num_nodes < 100:
+        fail(f"[mesh] the world of one grew {fd_m.num_nodes} nodes, "
+             f"differing from batch mode's {fd_b.num_nodes} in {diff}")
+    print(f"[mesh] (a) bench recipe over a world of one ({backend}), "
+          f"{images} images, depth {depth}: "
+          f"{fd_m.num_nodes} nodes, node for node the tree of batch mode "
+          f"without a mesh; wall {wall_m:.2f} s (init "
+          f"{trainer.init_seconds:.2f} s) against {wall_b:.2f} s (init "
+          f"{tr_b.init_seconds:.2f} s)", flush=True)
+    for lv, (sm, sb) in enumerate(zip(trainer.level_stats,
+                                      tr_b.level_stats)):
+        coll = [s.elapsed_time(e) for s, e in log[marks[lv]:marks[lv + 1]]]
+        print(f"[mesh] level {lv}: {sm['nodes']} nodes, wall "
+              f"{sm['wall_s'] * 1e3:.1f} ms (no mesh "
+              f"{sb['wall_s'] * 1e3:.1f} ms); {len(coll)} all-reduces and "
+              f"all-gathers, {sum(coll):.3f} ms on the device", flush=True)
+
+
+def dist_backend() -> str:
+    import torch.distributed as dist
+
+    return dist.get_backend() if dist.is_initialized() else "none"
+
+
+def _mesh_tool(scene, images, depth):
+    """(b) ``rtree_train --devices 1`` writes the bytes of ``--devices 0``;
+    ``--devices 2`` exits naming the one visible card."""
+    import torch
+
+    from avatar_tpu_torch.tools import rtree_train
+
+    args = ["--synthetic-model", "6", "--images", str(images), "--depth",
+            str(depth), "--features", "64", "-q"]
+    data, walls = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for n in (0, 1):
+            path = os.path.join(tmp, f"d{n}.srtr")
+            t0 = time.perf_counter()
+            rtree_train.main([path, *args, "--devices", str(n)])
+            torch.cuda.synchronize()
+            walls[n] = time.perf_counter() - t0
+            with open(path, "rb") as f:
+                data[n] = f.read()
+        out = os.path.join(tmp, "d2.srtr")
+        try:
+            rtree_train.main([out, *args, "--devices", "2"])
+        except SystemExit as e:
+            refused = e.code
+        else:
+            refused = None
+        written = os.path.exists(out)
+    if data[1] != data[0]:
+        fail("[mesh] rtree_train --devices 1 wrote other bytes than "
+             "--devices 0")
+    n_cards = torch.cuda.device_count()
+    if not refused or refused == 0 or written or \
+            f"{n_cards} CUDA device(s) visible" not in str(refused):
+        fail(f"[mesh] rtree_train --devices 2 on {n_cards} card(s) was not "
+             f"refused naming the count: {refused!r}")
+    print(f"[mesh] (b) rtree_train at 1280x720, {images} images, depth "
+          f"{depth}: --devices 1 wrote the {len(data[0])} bytes of "
+          f"--devices 0 (wall {walls[1]:.2f} s and {walls[0]:.2f} s); "
+          f"--devices 2 refused: {refused}", flush=True)
+
+
+def _mesh_track(scene, frames=(1, 2)):
+    """(c) ``sharded_track_step`` over a world of one, a stream per
+    fixture frame from the reference's state before it, against
+    ``_fused_frame_impl`` called directly on each stream; and
+    ``FusedTracker.track`` from the same state, for its time.  Returns the
+    B1 launches of the sharded step and the recorded searches."""
+    import torch
+
+    from avatar_tpu_torch.optim import nn_kernel
+    from avatar_tpu_torch.optim.gauss_newton import Theta
+    from avatar_tpu_torch.parallel.training import (make_mesh,
+                                                     sharded_track_step)
+    from avatar_tpu_torch.tracking_fused import _fused_frame_impl
+
+    tracker = scene.tracker()
+    c = tracker.config
+    n_steps = c.frame_icp_iters * c.iters_per_icp
+    streams, direct, kw = [], [], None
+    for i in frames:
+        _load_state(tracker, scene.fixture, i)
+        if tracker.reinit or tracker._shape_refit_due():
+            fail(f"[mesh] fixture frame {i} is no plain steady frame")
+        kw_i = tracker._frame_kwargs(n_steps)
+        prev = kw_i.pop("theta_prev")
+        kw = kw or kw_i
+        xyz = tracker._upload(tracker._pre_stride(scene.frames[i]))
+        streams.append((xyz, tracker._theta, prev, tracker.com_pre))
+        direct.append(_fused_frame_impl(
+            tracker._ctx, tracker._ctx_fit, tracker._tree,
+            tracker.model.parents, xyz, tracker._zero_labels, tracker._bg,
+            tracker._intrin4, tracker._theta, tracker.com_pre,
+            theta_prev=prev, **kw_i))
+    stack = lambda k: torch.stack([s[k] for s in streams])
+    thetas = lambda k: Theta(*(torch.stack([s[k][f] for s in streams])
+                               for f in range(3)))
+    labels = torch.stack([tracker._zero_labels] * len(frames))
+    calls = []
+    with make_mesh(1, device=scene.dev) as mesh:
+        _reset_counts()
+        with _recording(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sharded_track_step(
+                mesh, tracker._ctx, tracker._ctx_fit, tracker._tree,
+                tracker.model.parents, stack(0), labels, tracker._bg,
+                tracker._intrin4, thetas(1), stack(3), kw,
+                thetas_prev_b=thetas(2))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+        launches = dict(nn_kernel.LAUNCHES)
+    if launches["nn_argmin_ranges"] <= 0:
+        fail("[mesh] the sharded track step never launched B1")
+    ref, gt = scene.fixture["ref_joints"], scene.gt
+    rows = []
+    for s, (i, one) in enumerate(zip(frames, direct)):
+        got = (*(t[s] for t in out.theta), out.labels_strided[s],
+               out.host_diag[s])
+        want = (*one.theta, one.labels_strided, one.host_diag)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"[mesh] stream {s} (fixture frame {i}) differs from "
+                 "_fused_frame_impl called directly on it")
+        tracker._theta = Theta(*got[:3])
+        joints = tracker.pose()[1]
+        d_ref = _joint_mm(joints, ref[i])
+        if d_ref > REF_MM:
+            fail(f"[mesh] stream {s}: joints {d_ref:.2f} mm from the "
+                 f"reference's synced frame {i} (bound {REF_MM} mm)")
+        rows.append(f"frame {i} vs reference {d_ref:.3f} mm, vs GT "
+                    f"{_joint_mm(joints, gt[i]):.2f} mm")
+    walls = []
+    for i in frames:
+        _load_state(tracker, scene.fixture, i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tracker.track(scene.frames[i])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"[mesh] (c) sharded_track_step, {len(frames)} streams at "
+          f"{W}x{H} over a world of one: theta, labels and host_diag of "
+          f"every stream equal to _fused_frame_impl on it, to the bit; "
+          + "; ".join(rows) + f"; {ms:.1f} ms per stream, "
+          f"FusedTracker.track {np.mean(walls):.1f} ms per frame (the same "
+          f"frames and states); kernel launches {launches}", flush=True)
+    return launches, calls
+
+
+def _mesh_lbs(scene):
+    """(d) ``sharded_multistream_lbs`` against ``lbs_batched``."""
+    import torch
+
+    from avatar_tpu_torch.core import rotation
+    from avatar_tpu_torch.core.lbs import lbs_batched
+    from avatar_tpu_torch.parallel.training import (make_mesh,
+                                                     sharded_multistream_lbs)
+
+    model, dev = scene.model, scene.dev
+    rng = np.random.default_rng(1)
+    n = 4
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    w = t(rng.normal(0, 0.5, (n, model.num_shape_keys())))
+    p = t(rng.normal(0, 0.5, (n, 3)))
+    rots = rotation.so3_exp(t(rng.normal(0, 0.3, (n, 24, 3))))
+    with make_mesh(1, device=dev) as mesh:
+        got = sharded_multistream_lbs(mesh, model.params, model.parents, w,
+                                      p, rots)
+    want = lbs_batched(model.params, model.parents, w, p, rots)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail("[mesh] sharded_multistream_lbs differs from lbs_batched")
+    print(f"[mesh] (d) sharded_multistream_lbs of {n} poses of the "
+          f"{model.num_points()}-vertex model equals lbs_batched to the bit",
+          flush=True)
+
+
+def phase_mesh(scene, images=TRAIN_IMAGES, depth=TRAIN_DEPTH,
+               tool_images=32, tool_depth=6):
+    """The multi-device layer through its entry points, over a world of one
+    (NCCL on the card: one card, and NCCL puts no two ranks on one GPU).
+    Returns the sharded step's B1 launches and the recorded searches'
+    largest d2 error."""
+    _mesh_train(scene, images, depth)
+    _mesh_tool(scene, tool_images, tool_depth)
+    launches, calls = _mesh_track(scene)
+    _mesh_lbs(scene)
+    return launches, _hold_recorded("mesh", calls, scene.dev)
 
 
 # the scopes of items that every fused frame reaches, and of one LM step
@@ -2318,7 +2712,8 @@ def main():
     paths["host"] = tuple(host)
     paths["library"] = phase_library(scene, samples)
     phase_train(scene)
-    paths["tools"] = phase_tools(scene)
+    paths["tools"], paths["optim_tool"] = phase_tools(scene)
+    paths["mesh"] = phase_mesh(scene)
     *stages, lines = phase_stages(scene)
     paths["stages"] = tuple(stages)
     # every recorded launch of each path was held against the plain

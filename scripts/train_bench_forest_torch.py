@@ -46,10 +46,11 @@ def make_trainer(model, images: int, depth: int, groups: bool = True,
                  features: int = 512, filtered: int = 64, probe: float = 220.0,
                  min_samples: int = 48, balance: float = 0.5,
                  image_batch: int = 0, seed: int = 11, verbose: bool = False,
-                 checkpoint_path: str = "", pass_mode: str = "auto"):
-    """The bench recipe's ``ForestTrainer`` on the model's device: frames
-    of (H, W) / train_stride with the intrinsics and the probe range
-    divided by the stride."""
+                 checkpoint_path: str = "", pass_mode: str = "auto",
+                 mesh=None):
+    """The bench recipe's ``ForestTrainer`` on the model's device (over
+    ``mesh``, if given): frames of (H, W) / train_stride with the
+    intrinsics and the probe range divided by the stride."""
     from avatar_tpu_torch.io.calibration import CameraIntrin
     from avatar_tpu_torch.train.forest import ForestTrainer
 
@@ -64,7 +65,7 @@ def make_trainer(model, images: int, depth: int, groups: bool = True,
         max_probe_offset=probe / ts, min_samples=min_samples,
         max_tree_depth=depth, image_batch=image_batch or 8 * ts * ts,
         seed=seed, verbose=verbose, sample_balance=balance,
-        checkpoint_path=checkpoint_path, pass_mode=pass_mode)
+        checkpoint_path=checkpoint_path, pass_mode=pass_mode, mesh=mesh)
 
 
 def train_bench_tree(model, images: int, depth: int, train_stride: int = 3,

@@ -4,7 +4,8 @@ version (B1 at the fit's planned shapes, B2 at the unplanned
 the kernel's work units), and the renderer, ``find_nn_stats`` and the
 forest trainer's passes (the frame cache's gather, min/max, counts,
 assignment, gains, the device sampler) against the same functions on the
-CPU.  Imports
+CPU, a world of one over NCCL (the sharded passes and the mesh trainer)
+and ``optim_tool``.  Imports
 no JAX (the card's machine has none); on a machine without a CUDA device
 every test skips.  On the card:
 
@@ -669,3 +670,63 @@ def test_demo_on_card_launches_b1(cuda, tmp_path):
                    "-I", "2", "-M", "100", "--max-frames", "3", *fused])
         torch.cuda.synchronize()
         assert nn_kernel.LAUNCHES["nn_argmin_ranges"] > before
+
+
+@pytest.mark.cuda
+def test_mesh_world_of_one_on_card(cuda):
+    """A world of one over NCCL: the sharded passes equal the local ones
+    on the card to the bit, and the mesh trainer grows batch mode's
+    tree."""
+    import torch.distributed as dist
+
+    from avatar_tpu_torch.io.calibration import CameraIntrin
+    from avatar_tpu_torch.parallel import training as ptrain
+    from avatar_tpu_torch.testing import synthetic_model
+    from avatar_tpu_torch.train import forest, synth
+
+    model = synthetic_model(detail=1, device=cuda)
+    intrin = CameraIntrin(fx=120.0, fy=120.0, cx=48.0, cy=48.0)
+    src = synth.make_source(model, intrin, n_images=16, seed=2)
+    depth, mask, _ = synth.render_batch(src, model.parents, np.arange(8), 2,
+                                        96, 96, model.num_shape_keys())
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    sx, sy, part, valid = forest.sample_pixels_device(depth, mask, 64, 24,
+                                                      0.5, gen)
+    nl = torch.where(valid, torch.randint(0, 2, valid.shape, device=cuda,
+                                          generator=gen), -1).to(torch.int32)
+    fu = torch.rand((12, 2), device=cuda, generator=gen) * 80 - 40
+    fv = torch.rand((12, 2), device=cuda, generator=gen) * 80 - 40
+    kw = dict(num_parts=24, num_images=16, num_points_per_image=150,
+              num_features=16, max_probe_offset=48.0, min_samples=16,
+              max_tree_depth=5, image_batch=8, seed=9)
+    with ptrain.make_mesh(1) as mesh:
+        assert dist.get_backend() == "nccl" and mesh.device.type == "cuda"
+        mn, mx = ptrain.sharded_pass_minmax(mesh, depth, sx, sy, valid, nl,
+                                            fu, fv, 2)
+        counts = ptrain.sharded_pass_counts(mesh, depth, sx, sy, part, valid,
+                                            nl, fu, fv, mn, mx, 2, 8, 24)
+        fd_m = forest.ForestTrainer(model, intrin, (96, 96), mesh=mesh,
+                                    **kw).train()
+    rmn, rmx = forest.pass_minmax(depth, sx, sy, valid, nl, fu, fv, 2)
+    assert torch.equal(mn, rmn) and torch.equal(mx, rmx)
+    assert torch.equal(counts, forest.pass_counts(
+        depth, sx, sy, part, valid, nl, fu, fv, rmn, rmx, 2, 8, 24))
+    fd_b = forest.ForestTrainer(model, intrin, (96, 96), pass_mode="batch",
+                                **kw).train()
+    for f in ("u", "v", "thresh", "lnode", "rnode", "leafid", "leaf_data"):
+        np.testing.assert_array_equal(getattr(fd_m, f), getattr(fd_b, f))
+    assert not dist.is_initialized()
+
+
+@pytest.mark.cuda
+def test_optim_tool_on_card_launches_b1(cuda):
+    """``optim_tool`` on the card (its default device), the reference
+    test's flow: the fit recovers the pose through B1."""
+    from avatar_tpu_torch.tools import optim_tool
+
+    before = nn_kernel.LAUNCHES["nn_argmin_ranges"]
+    post = optim_tool.main(["--synthetic-model", "1", "--size", "192x192",
+                            "--icp-iters", "3", "--interval", "2"])
+    torch.cuda.synchronize()
+    assert post < 0.08
+    assert nn_kernel.LAUNCHES["nn_argmin_ranges"] > before

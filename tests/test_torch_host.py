@@ -249,8 +249,8 @@ def test_rtree_post_process_matches_reference(sequence, forests,
         assert (out_t != labels).any(), "the filter erased something"
     np.testing.assert_allclose(com_t, com_j, atol=1e-4)
     assert com_t.shape == (2, tt.num_parts)
-    # training is ported; over several devices it is refused
-    with pytest.raises(NotImplementedError, match="A6"):
+    # training over several devices needs a launched world
+    with pytest.raises(RuntimeError, match="run_world"):
         tt.train_from_avatar(None, None, None, (8, 8), devices=2)
     assert tt.read_part_map("data/bench_forest_g14c.srtr.partmap") == \
         jt.read_part_map("data/bench_forest_g14c.srtr.partmap")

@@ -610,10 +610,17 @@ def test_trainer_defaults_to_the_card(source):
 
 
 def test_mesh_training_is_refused(source):
-    with pytest.raises(NotImplementedError, match="A6"):
-        tforest.ForestTrainer(None, None, (H, W), frame_source=source,
-                              device="cpu", mesh=object(), **TRAIN_KW)
-    with pytest.raises(NotImplementedError, match="A6"):
+    """Over a mesh the trainer refuses the flat passes, and ``devices`` > 1
+    outside a launched world names the launcher (the mesh's own tests are
+    ``tests/test_torch_parallel.py``)."""
+    from avatar_tpu_torch.parallel.training import make_mesh
+
+    with make_mesh(1, device="cpu") as mesh:
+        with pytest.raises(ValueError, match="pass_mode='batch'"):
+            tforest.ForestTrainer(None, None, (H, W), frame_source=source,
+                                  device="cpu", mesh=mesh, pass_mode="flat",
+                                  **TRAIN_KW)
+    with pytest.raises(RuntimeError, match="run_world"):
         RTree(24, device="cpu").train_from_avatar(
             None, None, None, (H, W), devices=2)
 
@@ -803,12 +810,14 @@ def test_tools_train_and_transfer(tmp_path, capsys):
 
 
 def test_tool_refuses_devices(tmp_path):
+    """``--devices`` trains on synthetic renders; with ``--data`` (one
+    device, as in the reference) it is refused before any training."""
     from avatar_tpu_torch.tools import rtree_train
 
     with pytest.raises(SystemExit) as e:
-        rtree_train.main([str(tmp_path / "x.srtr"), "--devices", "1"]
-                         + TOOL_ARGS)
-    assert "A6" in str(e.value.code)
+        rtree_train.main([str(tmp_path / "x.srtr"), "--devices", "1",
+                          "--data", str(tmp_path)] + TOOL_ARGS)
+    assert "--data trains on one device" in str(e.value.code)
     assert not os.path.exists(tmp_path / "x.srtr")
 
 
