@@ -5,8 +5,9 @@ Rebuild of reference demo.cpp (flags demo.cpp:44-73): background subtraction
 from a designated background frame, forest segmentation, avatar fit, Lambert
 overlay, on ``--device`` (the card by default).  Headless by default (writes
 overlay frames to --out); pass --display to show a window when OpenCV GUI
-support exists.  ``--throughput`` (the reference's batched ``track_batch``
-mode) is not ported and exits with a message.
+support exists.  ``--throughput B --fused`` tracks the first frame, then
+the rest in batches of B (``FusedTracker.track_batch``), and prints frames
+per second.
 
     python -m avatar_tpu_torch.tools.demo DATASET_PATH RTREE_PATH [options]
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -23,11 +25,6 @@ from avatar_tpu_torch.io.dataset import Dataset
 from avatar_tpu_torch.perception.rtree import RTree
 from avatar_tpu_torch.tools.common import add_model_args, load_model
 from avatar_tpu_torch.tracking import Tracker, TrackerConfig
-
-THROUGHPUT_MESSAGE = ("the batched throughput mode (FusedTracker."
-                      "track_batch) is not ported: ROADMAP A9 leaves the "
-                      "batch and async paths behind")
-
 
 def build_parser():
     ap = argparse.ArgumentParser(description=__doc__)
@@ -57,9 +54,9 @@ def build_parser():
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--fused", action="store_true",
                     help="use the fully fused on-device pipeline (note: its "
-                         "track_async throughput mode detects tracking loss "
-                         "one frame late by design; this tool uses the "
-                         "synchronous path)")
+                         "track_async mode detects tracking loss "
+                         "pipeline_depth frames late by design; this tool "
+                         "uses the synchronous path)")
     ap.add_argument("--metrics", default="",
                     help="write per-frame metrics JSONL here (stage ms, "
                          "per-part match counts, fit cost, reinit events)")
@@ -73,16 +70,15 @@ def build_parser():
                     help="disable the model-predicted label override "
                          "(fused tracker; on by default with a forest)")
     ap.add_argument("--throughput", type=int, default=0, metavar="B",
-                    help="the reference's offline max-throughput mode "
-                         "(track_batch): not ported, any B > 0 is refused")
+                    help="offline max-throughput mode (fused tracker): "
+                         "track B frames per batch (track_batch); prints "
+                         "fps, skips per-frame overlays")
     add_model_args(ap)
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.throughput > 0:
-        sys.exit(f"--throughput {args.throughput}: {THROUGHPUT_MESSAGE}")
     ds = Dataset(args.dataset_path, pad=args.pad)
     model = load_model(args)
 
@@ -128,6 +124,10 @@ def main(argv=None):
     if args.out:
         os.makedirs(args.out, exist_ok=True)
 
+    if args.throughput and args.fused and not args.rtree_only:
+        _throughput(args, ds, tracker)
+        return
+
     n = 0
     for fid in ds.frames(start=args.image):
         xyz = ds.xyz(fid)
@@ -156,6 +156,28 @@ def main(argv=None):
         tracker.close_metrics()
         print(f"[demo] metrics written to {args.metrics}")
     print(tracker.timer.report())
+
+
+def _throughput(args, ds, tracker):
+    """Track the first frame, then the rest in batches of
+    ``args.throughput``; print the frames per second of the batches."""
+    fids = list(ds.frames(start=args.image))
+    if args.max_frames:
+        fids = fids[: args.max_frames]
+    tracker.track(ds.xyz(fids[0]))
+    B = args.throughput
+    t0 = time.perf_counter()
+    n_ok = 0
+    for i in range(1, len(fids), B):
+        chunk = [ds.xyz(f) for f in fids[i:i + B]]
+        n_ok += sum(r.ok for r in tracker.track_batch(chunk))
+    dt = time.perf_counter() - t0
+    print(f"[demo] {len(fids) - 1} frames in {dt:.2f}s "
+          f"({(len(fids) - 1) / max(dt, 1e-9):.1f} fps, "
+          f"{n_ok} tracked), batch={B}")
+    if args.metrics:
+        tracker.close_metrics()
+        print(f"[demo] metrics written to {args.metrics}")
 
 
 def _palette_view(seg: np.ndarray) -> np.ndarray:

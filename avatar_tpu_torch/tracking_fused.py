@@ -24,8 +24,15 @@ orders ties toward the lower index exactly as ``lax.top_k`` does (the hash
 noise has only 65536 levels, so ties occur).  The stages carry the
 reference's scope names (``profiling.scope``: ``bgsub``, ``forest_walk``,
 ``blob_suppress``, ``fit``, ``refine``; the rest of a frame under
-``glue/...``), below one ``frame`` root per pass through the pipeline.  Not
-ported: the batch and async paths, which amortize a remote link.
+``glue/...``), below one ``frame`` root per pass through the pipeline.
+
+The batch and async modes keep the reference's results and lags:
+``fused_frames_batch`` runs a batch as a loop over the frame (the
+reference's ``lax.scan``), ``track_batch`` / ``track_batch_async`` upload a
+batch at once and read its stacked diagnostics once, and ``track_async``
+returns a frame's result ``pipeline_depth`` calls late.  The frame reads
+from the device many times, so a dispatched frame or batch has finished
+before the call returns: these modes do not overlap host and device work.
 """
 
 from __future__ import annotations
@@ -83,10 +90,13 @@ class HostDiag(NamedTuple):
     hard_overflow: float
 
 
-def unpack_diag(vec: torch.Tensor, num_parts: int) -> HostDiag:
-    """The packed diagnostics vector, read with one device->host copy."""
-    with scope("diag_read"):
-        a = vec.cpu().numpy()
+def unpack_diag(vec, num_parts: int) -> HostDiag:
+    """The packed diagnostics vector (a tensor, read with one device->host
+    copy, or a row of a batch's diagnostics already read)."""
+    a = vec
+    if isinstance(vec, torch.Tensor):
+        with scope("diag_read"):
+            a = vec.cpu().numpy()
     G = num_parts
     return HostDiag(
         n_points=int(a[0]), cost=float(a[1]), n_matched=int(a[2]),
@@ -527,6 +537,34 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
                     host_diag=host_diag)
 
 
+def fused_frames_batch(ctx: FitContext, ctx_fit: Optional[FitContext],
+                       tree: Optional[TreeTensors],
+                       parents: Tuple[int, ...], depth_b: torch.Tensor,
+                       labels_b: torch.Tensor, bg_depth: torch.Tensor,
+                       intrin4: torch.Tensor, theta0: Theta, com_pre,
+                       theta_prev0: Optional[Theta] = None, **frame_kw):
+    """Track a batch of consecutive frames, ``depth_b`` [B, H, W] and
+    ``labels_b`` [B, H, W], each frame through ``_fused_frame_impl`` with
+    the keyword arguments ``frame_kw`` (those after ``com_pre``, without
+    ``theta_prev``), carrying (theta, theta_prev, com_pre) from frame to
+    frame as the reference's scan does.  Returns (thetas with a leading
+    batch axis, host_diag [B, D], the last theta, the last com_pre, the
+    last velocity anchor); the label images are not kept."""
+    th, com = theta0, com_pre
+    th_prev = theta0 if theta_prev0 is None else theta_prev0
+    thetas, diags = [], []
+    for d_i, l_i in zip(depth_b, labels_b):
+        with scope(FRAME_SCOPE):
+            out = _fused_frame_impl(ctx, ctx_fit, tree, parents, d_i, l_i,
+                                    bg_depth, intrin4, th, com,
+                                    theta_prev=th_prev, **frame_kw)
+        th_prev, th, com = th, out.theta, out.com_pre
+        thetas.append(out.theta)
+        diags.append(out.host_diag)
+    return (Theta(*(torch.stack(f) for f in zip(*thetas))),
+            torch.stack(diags), th, com, th_prev)
+
+
 def _group_tree(t: TreeTensors, lut: np.ndarray, ng: int) -> TreeTensors:
     """Fold a tree's leaf part distributions into matching groups (argmax
     and confidence recomputed group-wise)."""
@@ -692,6 +730,11 @@ class FusedTracker:
                             w=tt(np.zeros(model.num_shape_keys())))
         # one frame behind self._theta: the warm start's velocity anchor
         self._theta_prev = self._theta
+        # the batch and async modes: the last batch's poses [B, ...], the
+        # batches and frames in flight
+        self.batch_thetas: Optional[Theta] = None
+        self._batch_q: list = []
+        self._pending_q: list = []
 
         c = self.config
         H, W = self.image_size
@@ -877,27 +920,27 @@ class FusedTracker:
     _WARM_STATE = ("_theta", "_theta_prev", "com_pre", "reinit", "first_init",
                    "_frame_no", "_lost_count", "_lost_frames",
                    "_shape_refit_in", "_last_root_z", "_starve",
-                   "limb_recoveries", "_metrics_file", "_metrics_frame")
+                   "limb_recoveries", "_metrics_file", "_metrics_frame",
+                   "batch_thetas", "_batch_q", "_pending_q")
 
     def warmup(self, frame, labels_override=None, batch: int = 0) -> None:
         """Run every variant of ``track`` the tracking loop can reach on
         ``frame``: the reinit, the steady state, the one-shot post-reinit
         shape refit (``config.shape_refit_after``) and the periodic surface
-        refine (``config.refine_every``).  The first real frame then pays
-        for none of what a process pays once: the build and load of the NN
-        kernel, the allocator's pools, the NN scratch of each fit bucket,
-        the cuBLAS and cuSOLVER handles.  The per-frame tracking state, the
-        stage timer and an open metrics log are as before afterwards.  Call
-        after ``set_background``.  The port has no batch path (ROADMAP item
-        9), so ``batch`` > 0 raises."""
-        if batch > 0:
-            raise NotImplementedError(
-                "FusedTracker has no batch path in the port (ROADMAP item "
-                "9): warmup(batch > 0) has nothing to warm")
+        refine (``config.refine_every``); with ``batch`` > 0 also
+        ``track_batch`` over ``batch`` copies of ``frame``.  The first real
+        frame then pays for none of what a process pays once: the build and
+        load of the NN kernel, the allocator's pools, the NN scratch of each
+        fit bucket, the cuBLAS and cuSOLVER handles.  The per-frame tracking
+        state (the batch and async modes' included), the stage timer and an
+        open metrics log are as before afterwards.  Call after
+        ``set_background``."""
         c = self.config
         snap = {k: getattr(self, k) for k in self._WARM_STATE}
         snap["_starve"] = self._starve.copy()
         snap["limb_recoveries"] = dict(self.limb_recoveries)
+        snap["_batch_q"] = list(self._batch_q)
+        snap["_pending_q"] = list(self._pending_q)
         stats = {k: list(v) for k, v in self.timer.stats.items()}
         self._metrics_file = None        # keep warmup out of the log
         try:
@@ -919,6 +962,12 @@ class FusedTracker:
                 self._shape_refit_in = None
                 self._frame_no = c.refine_every - 1
                 self.track(frame, labels_override)    # periodic refine
+            if batch > 0:
+                self.reinit = False
+                self._shape_refit_in = None
+                self.track_batch([frame] * batch,
+                                 None if labels_override is None
+                                 else [labels_override] * batch)
         finally:
             for k, v in snap.items():
                 setattr(self, k, v)
@@ -933,6 +982,13 @@ class FusedTracker:
         return torch.as_tensor(np.ascontiguousarray(depth_np),
                                dtype=self.model.dtype, device=self.device)
 
+    def _upload_labels(self, labels_override) -> torch.Tensor:
+        if labels_override is None:
+            return self._zero_labels
+        return torch.as_tensor(self._map_labels(self._pre_stride(
+            np.asarray(labels_override))), dtype=torch.uint8,
+            device=self.device)
+
     def track(self, frame, labels_override: Optional[np.ndarray] = None
               ) -> TrackResult:
         """Track one frame: an XYZ map [H, W, 3], a float depth map [H, W]
@@ -942,12 +998,7 @@ class FusedTracker:
         depth_np = frame[..., 2] if frame.ndim == 3 else frame
         depth_np = self._pre_stride(depth_np)
         xyz = self._upload(depth_np)
-        if labels_override is None:
-            labels = self._zero_labels
-        else:
-            labels = torch.as_tensor(self._map_labels(self._pre_stride(
-                np.asarray(labels_override))), dtype=torch.uint8,
-                device=self.device)
+        labels = self._upload_labels(labels_override)
 
         min_needed = c.min_points / (c.data_interval ** 2)
         reinitialized = False
@@ -1095,6 +1146,182 @@ class FusedTracker:
     def _shape_refit_due(self) -> bool:
         return (self._shape_refit_in is not None and
                 self._shape_refit_in <= 0)
+
+    # -- the batch and async modes -------------------------------------------
+
+    def _run_batch(self, dep_b, lab_b, n_steps):
+        """Run a batch of steady-state frames (``fused_frames_batch``):
+        shape frozen, and the surface refine on every frame when
+        ``refine_every == 1``, on none otherwise."""
+        kw = self._frame_kwargs(n_steps,
+                                refine=self.config.refine_every == 1)
+        return fused_frames_batch(
+            self._ctx, self._ctx_fit, self._tree, self.model.parents, dep_b,
+            lab_b, self._bg, self._intrin4, self._theta, self.com_pre,
+            theta_prev0=kw.pop("theta_prev"), **kw)
+
+    def track_batch(self, frames, labels_override=None) -> list:
+        """Track a list of consecutive frames as one batch: one upload and
+        one read of the stacked diagnostics.  No reinit happens inside a
+        batch: while the tracker is lost (or its one-shot shape refit is
+        due) the head frame goes through ``track`` and the rest is a batch;
+        after a loss inside a batch the later frames still get results and
+        the next call reinitializes.  Returns a TrackResult per frame; the
+        poses stand in ``self.batch_thetas`` with a leading batch axis."""
+        if not frames:
+            return []
+        if self.reinit or self._shape_refit_due():
+            head = self.track(frames[0], None if labels_override is None
+                              else labels_override[0])
+            head_theta = Theta(*(t[None] for t in self._theta))
+            rest = self.track_batch(frames[1:], None if labels_override
+                                    is None else labels_override[1:])
+            # batch_thetas stays aligned with the results: the head's pose
+            # leads
+            self.batch_thetas = head_theta if not rest else Theta(
+                *(torch.cat(p) for p in zip(head_theta, self.batch_thetas)))
+            return [head] + rest
+        results, self.batch_thetas = self._batch_resolve(
+            self._batch_dispatch(frames, labels_override))
+        return results
+
+    def _batch_dispatch(self, frames, labels_override) -> dict:
+        """Stride and stack a batch, upload it once and run it; the pose
+        chain advances to its last frame.  Returns the record
+        ``_batch_resolve`` reads."""
+        c = self.config
+        deps = []
+        for f in frames:
+            f = np.asarray(f)
+            deps.append(self._pre_stride(f[..., 2] if f.ndim == 3 else f))
+        dep_b = self._upload(np.stack(deps))
+        if labels_override is None:
+            lab_b = torch.zeros((len(frames),) + self._proc_size,
+                                dtype=torch.uint8, device=self.device)
+        else:
+            lab_b = torch.as_tensor(np.stack([
+                self._map_labels(self._pre_stride(np.asarray(lab)))
+                for lab in labels_override]), dtype=torch.uint8,
+                device=self.device)
+        if self._shape_refit_in is not None:
+            # every batch frame runs shape-frozen; an expiring countdown is
+            # taken up by the next batch's head frame (track_batch)
+            self._shape_refit_in -= len(frames)
+        (thetas, diags, self._theta, self.com_pre,
+         self._theta_prev) = self._run_batch(
+            dep_b, lab_b, c.frame_icp_iters * c.iters_per_icp)
+        return dict(diags=diags, thetas=thetas, dep_last=deps[-1])
+
+    def _batch_resolve(self, pending: dict):
+        """The host's side of a run batch: one read of its diagnostics,
+        then per frame the loss rule, the body depth and a metrics line;
+        limb recovery on the last frame.  Returns (results, thetas)."""
+        c = self.config
+        with scope("diag_read"):
+            dn = pending["diags"].cpu().numpy()
+        min_needed = c.min_points / (c.data_interval ** 2)
+        results = []
+        for row in dn:
+            diag = unpack_diag(row, self.num_parts)
+            ok = ((diag.n_points >= min_needed or diag.n_fg >= max(
+                2.0, min_needed * c.absent_fg_frac)) and
+                (c.max_root_jump <= 0 or diag.root_jump <= c.max_root_jump))
+            if not ok:
+                # the batch's later frames still get results; the next
+                # call reinitializes
+                self.reinit = True
+                self._lost_frames += 1
+            else:
+                self._lost_frames = 0
+                mz = diag.model_com[:, 4]
+                if np.any(mz > 0):
+                    self._last_root_z = float(np.mean(mz[mz > 0]))
+            results.append(TrackResult(ok=ok, n_points=diag.n_points,
+                                       fit_info=self._fit_info(diag)))
+            self._log_metrics(results[-1])
+        if not self.reinit:
+            self._limb_recovery(unpack_diag(dn[-1], self.num_parts),
+                                pending["dep_last"])
+        return results, pending["thetas"]
+
+    def track_batch_async(self, frames, labels_override=None) -> list:
+        """Run this batch and resolve the previous one.  Returns the
+        (results, thetas) pairs this call resolved: none on the first call,
+        then one per call; on a reinit or a due shape refit the batches in
+        flight are resolved first and this batch runs through
+        ``track_batch``.  A loss shows one batch late; ``flush_batches``
+        resolves the last batch."""
+        if not frames:
+            return []
+        if self.reinit or self._shape_refit_due():
+            resolved = self.flush_batches()
+            res = self.track_batch(frames, labels_override)
+            return resolved + [(res, self.batch_thetas)]
+        self._batch_q.append(self._batch_dispatch(frames, labels_override))
+        if len(self._batch_q) > 1:
+            return [self._batch_resolve(self._batch_q.pop(0))]
+        return []
+
+    def flush_batches(self) -> list:
+        """Resolve every batch in flight from ``track_batch_async``; returns
+        their (results, thetas) pairs."""
+        out = []
+        while self._batch_q:
+            out.append(self._batch_resolve(self._batch_q.pop(0)))
+        return out
+
+    def track_async(self, frame, labels_override: Optional[np.ndarray] = None
+                    ) -> Optional[TrackResult]:
+        """Run this frame and return the result of the frame
+        ``config.pipeline_depth`` calls before it (None until there is
+        one).  The loss check reads that frame's point count, and limb
+        recovery its diagnostics with this frame's depth.  While lost, the
+        frames in flight are dropped and the frame goes through ``track``.
+        ``flush`` reads the newest frame in flight."""
+        c = self.config
+        if self.reinit:
+            self._pending_q = []
+            return self.track(frame, labels_override)
+        depth_np = np.asarray(frame)
+        if depth_np.ndim == 3:
+            depth_np = depth_np[..., 2]
+        depth_np = self._pre_stride(depth_np)
+        xyz = self._upload(depth_np)
+        labels = self._upload_labels(labels_override)
+        fit_shape = self._shape_refit_due()
+        if fit_shape:
+            self._shape_refit_in = None
+        elif self._shape_refit_in is not None:
+            self._shape_refit_in -= 1
+        out = self._run(xyz, labels, c.frame_icp_iters * c.iters_per_icp,
+                        fit_shape=fit_shape)
+        self._theta_prev = self._theta
+        self._theta = out.theta
+        self.com_pre = out.com_pre
+        self._pending_q.append(out)
+        if len(self._pending_q) < max(1, c.pipeline_depth) + 1:
+            return None
+        diag = unpack_diag(self._pending_q.pop(0).host_diag, self.num_parts)
+        self._limb_recovery(diag, depth_np)
+        if diag.n_points < c.min_points / (c.data_interval ** 2):
+            self.reinit = True
+            res = TrackResult(ok=False, n_points=diag.n_points)
+        else:
+            res = TrackResult(ok=True, n_points=diag.n_points,
+                              fit_info=self._fit_info(diag))
+        self._log_metrics(res)
+        return res
+
+    def flush(self) -> Optional[TrackResult]:
+        """The result of the newest frame in flight from ``track_async``
+        (None if there is none); the older ones are dropped, and no loss
+        check or metrics line is made."""
+        if not self._pending_q:
+            return None
+        diag = unpack_diag(self._pending_q[-1].host_diag, self.num_parts)
+        self._pending_q = []
+        return TrackResult(ok=True, n_points=diag.n_points,
+                           fit_info=self._fit_info(diag))
 
     @staticmethod
     def _fit_info(diag: HostDiag) -> dict:

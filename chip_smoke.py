@@ -37,6 +37,22 @@ each (any failure exits non-zero and prints no result):
    sequence amplifies that difference (see PERF.md).  The kernel is held
    against its plain version on the inputs of every launch of the synced
    run (indices equal, d2 within rtol 1e-6).
+4b. batch — the batch and async modes of ``FusedTracker`` at phase 4's
+   configuration, each from the state after ``track`` on frame 0.  (a)
+   ``track_batch`` over frames 1-5, the main path: every result ok, one
+   pose per result, each within 40 mm of ground truth (reported beside the
+   reference's joints, unbounded); B1 held against its plain version on
+   every launch.  (b) ``_fused_frame_impl`` frame by frame with the
+   batch's arguments: thetas, host_diag and the last com_pre equal to
+   (a)'s, to the bit.  (c) ``track_batch_async`` over [1, 2] [3, 4] [5],
+   then ``flush_batches``: pairs per call [0, 1, 1, 1], poses equal to
+   (a)'s to the bit.  (d) ``track_async`` over frames 1-5, then ``flush``:
+   ``pipeline_depth`` Nones, then the results of ``track``'s chain that
+   many calls late, and the flush frame's; where no limb recovery fired,
+   the poses equal the chain's to the bit.  (e) ``warmup(frame,
+   batch=16)`` leaves the state as it was; 16 frames ping-ponged over the
+   fixture (bench.py's batch width) as one batch and through ``track``.
+   Frames per second of each mode.
 5. render — the 6 ground-truth poses of tests/fixtures/
    torch_port_720p_refine.npz through ``Avatar.update`` and
    ``AvatarRenderer`` on the card: the uint16-mm scene against the
@@ -162,8 +178,8 @@ each (any failure exits non-zero and prints no result):
    ``synchronize`` calls apart); the frames' wall ms with its spread.
    Fails unless: the clocked frames equal an unclocked tracker's to the
    bit (theta, labels, diag); the warmed tracker's frames equal a cold
-   one's and its state after ``warmup`` equals its state before;
-   ``warmup(batch=2)`` raises; the metrics log has one line per tracked
+   one's and its state after ``warmup``, and after ``warmup(batch=2)``,
+   equals its state before; the metrics log has one line per tracked
    frame with the reference's keys and none from ``warmup``; the scopes
    directly below a frame sum to within 10% of the frame's own
    event-to-event ms; every stage and LM-step scope shows; B1 was
@@ -183,7 +199,7 @@ each (any failure exits non-zero and prints no result):
    sum to ``total_ms`` and ``total_ms`` is not above the traced frames'
    wall ms.
 
-The kernel counts are reset before each main path (phases 4, 6, 7, 8, 9,
+The kernel counts are reset before each main path (phases 4, 4b, 6, 7, 8, 9,
 each tool run of 10b, the sharded track step of 10c, and 11) and read
 after it.  The paths search through the fused entry
 (``nn_kernel.nn_match``); every recorded search is run again through the
@@ -713,6 +729,232 @@ def phase_slice(scene):
           f"{len(scene.trees)} trees x {scene.trees[0].forest.num_nodes} "
           f"nodes, {len(scene.frames)} frames {W}x{H}", flush=True)
     return _track_path(scene, "slice", scene.fixture)
+
+
+BATCH_WIDTH = 16        # bench.py's frames per batch (--batch)
+
+
+def _copied(v):
+    return v.copy() if isinstance(v, (np.ndarray, dict, list)) else v
+
+
+def _state(tracker) -> dict:
+    """The tracker's per-frame state, to be put back by ``_set_state``
+    (tensors are never written in place, so they are shared)."""
+    return {k: _copied(getattr(tracker, k)) for k in tracker._WARM_STATE}
+
+
+def _set_state(tracker, state: dict) -> None:
+    for k, v in state.items():
+        setattr(tracker, k, _copied(v))
+
+
+def _batch_joints(model, thetas) -> np.ndarray:
+    """Joints [B, 24, 3] of a batch of poses."""
+    from avatar_tpu_torch.core.lbs import lbs
+
+    return np.stack([lbs(model.params, model.parents, thetas.w[b],
+                         thetas.p[b], thetas.rots[b],
+                         use_jsr=model.use_joint_shape_regressor)[1]
+                     .cpu().numpy() for b in range(thetas.p.shape[0])])
+
+
+def _bit_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _same_thetas(a, b) -> bool:
+    return all(_bit_equal(x, y) for x, y in zip(a, b))
+
+
+def _timed(fn):
+    """(fn's value, wall seconds to a synchronise)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_batch(scene):
+    """The batch and async modes of ``FusedTracker`` at the bench's config
+    on the fixture's frames, each from the state after ``track`` on frame
+    0.  (a) ``track_batch`` over frames 1-5, the main path; (b) the same
+    frames through ``_fused_frame_impl`` one by one, to the bit; (c)
+    ``track_batch_async`` in batches of 2 and ``flush_batches``; (d)
+    ``track_async`` and ``flush`` against the ``track`` chain; (e)
+    ``warmup(batch=16)`` and a 16-frame batch against 16 ``track`` calls.
+    Returns B1's launches in (a) and the recorded searches' largest d2
+    error."""
+    import torch
+
+    from avatar_tpu_torch.optim import nn_kernel
+    from avatar_tpu_torch.optim.gauss_newton import Theta
+    from avatar_tpu_torch.tracking_fused import _fused_frame_impl
+
+    tag = "batch"
+    frames, gt, ref = scene.frames, scene.gt, scene.fixture["ref_joints"]
+    seq = list(frames[1:])
+    tracker = scene.tracker()
+    c = tracker.config
+    res0 = tracker.track(frames[0])
+    if not (res0.ok and res0.reinitialized):
+        fail(f"[{tag}] the reinit on frame 0 failed")
+    after0 = _state(tracker)
+    fps = {}
+
+    # (a) the main path, with the batch run's own outputs kept for (b)
+    runs, run_batch = [], tracker._run_batch
+    tracker._run_batch = lambda *a: runs.append(run_batch(*a)) or runs[-1]
+    calls = []
+    _reset_counts()
+    with _recording(calls):
+        results, s = _timed(lambda: tracker.track_batch(seq))
+    launches = dict(nn_kernel.LAUNCHES)
+    del tracker._run_batch
+    fps["track_batch"] = len(seq) / s
+    thetas = tracker.batch_thetas
+    if len(runs) != 1 or len(results) != len(seq) or \
+            thetas.p.shape[0] != len(seq):
+        fail(f"[{tag}] (a) {len(results)} results, "
+             f"{thetas.p.shape[0]} poses and {len(runs)} batch runs for "
+             f"{len(seq)} frames")
+    if launches["nn_argmin_ranges"] <= 0:
+        fail(f"[{tag}] (a) the batch never launched nn_argmin_ranges")
+    joints = _batch_joints(scene.model, thetas)
+    rows = []
+    for i, (res, j) in enumerate(zip(results, joints), start=1):
+        e_gt = _joint_mm(j, gt[i])
+        rows.append(f"frame {i}: ok={res.ok} n_points={res.n_points} vs GT "
+                    f"{e_gt:.2f} mm (reference {_joint_mm(ref[i], gt[i]):.2f}"
+                    f"), vs reference {_joint_mm(j, ref[i]):.3f} mm")
+        if not res.ok or res.reinitialized:
+            fail(f"[{tag}] (a) frame {i}: ok={res.ok}")
+        if not np.isfinite(j).all() or e_gt > TRACKING_MM:
+            fail(f"[{tag}] (a) frame {i}: {e_gt:.1f} mm from ground truth")
+    print(f"[{tag}] (a) track_batch over frames 1-{len(seq)} after track on "
+          f"frame 0: " + "; ".join(rows) + f"; {fps['track_batch']:.2f} "
+          f"frames per second; kernel launches {launches}", flush=True)
+    max_err = _hold_recorded(tag, calls, scene.dev)
+
+    # (b) the batch against _fused_frame_impl frame by frame, to the bit
+    _set_state(tracker, after0)
+    kw = tracker._frame_kwargs(c.frame_icp_iters * c.iters_per_icp,
+                               refine=c.refine_every == 1)
+    th_prev, th, com = kw.pop("theta_prev"), tracker._theta, tracker.com_pre
+    _, diags, _, com_f, _ = runs[0]
+    for i, frame in enumerate(seq):
+        out = _fused_frame_impl(
+            tracker._ctx, tracker._ctx_fit, tracker._tree,
+            tracker.model.parents, tracker._upload(tracker._pre_stride(frame)),
+            tracker._zero_labels, tracker._bg, tracker._intrin4, th, com,
+            theta_prev=th_prev, **kw)
+        th_prev, th, com = th, out.theta, out.com_pre
+        if not (_same_thetas(out.theta, Theta(*(t[i] for t in thetas)))
+                and _bit_equal(out.host_diag, diags[i])):
+            fail(f"[{tag}] (b) frame {i + 1}: the batch differs from "
+                 "_fused_frame_impl called frame by frame")
+    if not _bit_equal(com, com_f):
+        fail(f"[{tag}] (b) the batch's last com_pre differs")
+    print(f"[{tag}] (b) thetas, host_diag and the last com_pre of the batch "
+          "equal _fused_frame_impl called frame by frame with its arguments,"
+          " to the bit", flush=True)
+
+    # (c) batches of 2 in flight, then the flush
+    _set_state(tracker, after0)
+    got, resolved = [], []
+
+    def run_async():
+        for b in range(0, len(seq), 2):
+            got.append(tracker.track_batch_async(seq[b:b + 2]))
+        got.append(tracker.flush_batches())
+    _, s = _timed(run_async)
+    fps["track_batch_async"] = len(seq) / s
+    counts = [len(g) for g in got]
+    for g in got:
+        resolved.extend(g)
+    cat = Theta(*(torch.cat(f) for f in zip(*(t for _, t in resolved))))
+    flags = [(r.ok, r.n_points) for rs, _ in resolved for r in rs]
+    if counts != [0, 1, 1, 1] or not _same_thetas(cat, thetas) or \
+            flags != [(r.ok, r.n_points) for r in results]:
+        fail(f"[{tag}] (c) pairs per call {counts} (want [0, 1, 1, 1]), or "
+             "the poses or results differ from (a)'s")
+    print(f"[{tag}] (c) track_batch_async over [1, 2] [3, 4] [5], then "
+          f"flush_batches: pairs per call {counts}, poses equal (a)'s to the "
+          f"bit; {fps['track_batch_async']:.2f} frames per second",
+          flush=True)
+
+    # (d) track_async against the track chain
+    outs = {}
+    for mode in ("track", "track_async"):
+        _set_state(tracker, after0)
+        kept, run = [], tracker._run
+        tracker._run = lambda *a, **k: kept.append(run(*a, **k)) or kept[-1]
+        step = getattr(tracker, mode)
+        got, s = _timed(lambda: [step(f) for f in seq] + (
+            [tracker.flush()] if mode == "track_async" else []))
+        del tracker._run
+        fps[mode] = len(seq) / s
+        outs[mode] = (got, kept, dict(tracker.limb_recoveries))
+    (r_sync, o_sync, rec_sync), (r_async, o_async, rec_async) = \
+        outs["track"], outs["track_async"]
+    depth = c.pipeline_depth
+    lagged = r_async[depth:-1] + r_async[-1:]
+    want = r_sync[:len(seq) - depth] + r_sync[-1:]
+    fired = bool(rec_sync or rec_async)
+    if r_async[:depth] != [None] * depth or [
+            (r.ok, r.n_points) for r in lagged] != [
+            (r.ok, r.n_points) for r in want]:
+        fail(f"[{tag}] (d) track_async's results are not track's, "
+             f"{depth} calls late, and the flush frame {len(seq)}'s")
+    same = all(_same_thetas(a.theta, b.theta)
+               for a, b in zip(o_async, o_sync))
+    if not fired and not same:
+        fail(f"[{tag}] (d) no limb recovery fired, yet track_async's poses "
+             "differ from track's")
+    print(f"[{tag}] (d) track_async over frames 1-{len(seq)}, then flush: "
+          f"{depth} Nones, then frames 1-{len(seq) - depth}'s results and "
+          f"the flush frame {len(seq)}'s; limb recovery fired: "
+          f"{rec_sync or 'no'} (track), {rec_async or 'no'} (track_async); "
+          f"poses equal the track chain's to the bit: {same}; "
+          f"{fps['track_async']:.2f} frames per second, track "
+          f"{fps['track']:.2f}", flush=True)
+
+    # (e) bench.py's batch width: warmup, then 16 frames ping-ponged over
+    # the fixture, as one batch and through track, from the same state
+    order = [1, 2, 3, 4, 5, 4, 3, 2]
+    wide = [frames[order[i % len(order)]] for i in range(BATCH_WIDTH)]
+    _set_state(tracker, after0)
+    tracker.batch_thetas = thetas
+    before = _tracker_state(tracker)
+    _, s = _timed(lambda: tracker.warmup(frames[0], batch=BATCH_WIDTH))
+    if not _equal(_tracker_state(tracker), before):
+        fail(f"[{tag}] (e) warmup(batch={BATCH_WIDTH}) changed the "
+             "tracker's state")
+    warm_s = s
+    lb = nn_kernel.LAUNCHES["nn_argmin_ranges"]
+    res_b, s_b = _timed(lambda: tracker.track_batch(wide))
+    lb = nn_kernel.LAUNCHES["nn_argmin_ranges"] - lb
+    _set_state(tracker, after0)
+    res_t, s_t = _timed(lambda: [tracker.track(f) for f in wide])
+    if not all(r.ok for r in res_b + res_t):
+        fail(f"[{tag}] (e) a frame of the {BATCH_WIDTH}-frame run lost "
+             "track")
+    print(f"[{tag}] (e) warmup(batch={BATCH_WIDTH}) {warm_s:.2f} s, state "
+          f"after it equal to the state before; {BATCH_WIDTH} frames "
+          f"ping-ponged: track_batch {BATCH_WIDTH / s_b:.2f} frames per "
+          f"second ({lb} B1 launches), track {BATCH_WIDTH / s_t:.2f}",
+          flush=True)
+    fps[f"track_batch_{BATCH_WIDTH}"] = BATCH_WIDTH / s_b
+    fps[f"track_{BATCH_WIDTH}"] = BATCH_WIDTH / s_t
+    print(f"[{tag}] " + json.dumps(dict(
+        frames_per_second={k: round(v, 3) for k, v in fps.items()},
+        frames=len(seq), batch_width=BATCH_WIDTH)), flush=True)
+    return launches, max_err
 
 
 def _edges(img, jump):
@@ -2488,12 +2730,9 @@ def phase_stages(scene):
     warmup_ms = (time.perf_counter() - t0) * 1e3
     if not _equal(_tracker_state(warm), before):
         fail(f"[{tag}] warmup changed the tracker's state")
-    try:
-        warm.warmup(frames[0], batch=2)
-    except NotImplementedError:
-        pass
-    else:
-        fail(f"[{tag}] warmup(batch=2) did not raise")
+    warm.warmup(frames[0], batch=2)
+    if not _equal(_tracker_state(warm), before):
+        fail(f"[{tag}] warmup(batch=2) changed the tracker's state")
     out_c, out_w = _fused_outputs(cold), _fused_outputs(warm)
     rows_c = _drive(cold.track, frames, dev, lambda: list(out_c))
     with tempfile.TemporaryDirectory() as tmp:
@@ -2705,6 +2944,7 @@ def main():
     rec, search = phase_kernel(dev)
     scene = Scene(dev)
     paths = {"slice": phase_slice(scene)}
+    paths["batch"] = phase_batch(scene)
     phase_render(scene)
     paths["probe"] = phase_probe(scene)
     paths["accuracy"] = phase_accuracy(scene)

@@ -4,8 +4,9 @@ version (B1 at the fit's planned shapes, B2 at the unplanned
 the kernel's work units), and the renderer, ``find_nn_stats`` and the
 forest trainer's passes (the frame cache's gather, min/max, counts,
 assignment, gains, the device sampler) against the same functions on the
-CPU, a world of one over NCCL (the sharded passes and the mesh trainer)
-and ``optim_tool``.  Imports
+CPU, a world of one over NCCL (the sharded passes and the mesh trainer),
+``optim_tool``, and ``track_batch`` against the frame-by-frame chain.
+Imports
 no JAX (the card's machine has none); on a machine without a CUDA device
 every test skips.  On the card:
 
@@ -730,3 +731,88 @@ def test_optim_tool_on_card_launches_b1(cuda):
     torch.cuda.synchronize()
     assert post < 0.08
     assert nn_kernel.LAUNCHES["nn_argmin_ranges"] > before
+
+
+@pytest.fixture
+def deterministic(monkeypatch):
+    """Deterministic algorithms (the scatter-adds' sorted paths), as
+    ``chip_smoke.py`` runs: without them two runs of a frame differ in the
+    last bits."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(before)
+
+
+@pytest.mark.cuda
+def test_track_batch_on_card_equals_frame_chain(cuda, deterministic):
+    """``FusedTracker.track_batch`` on the card (the detail-2 model at
+    256x256, the 3-tree r5 forest, bgsub, the tracked window, 14 groups)
+    against ``_fused_frame_impl`` called frame by frame with the batch's
+    arguments from the same state, with deterministic algorithms: poses,
+    part centres and results equal to the bit, and B1 launched."""
+    from avatar_tpu_torch.core import rotation
+    from avatar_tpu_torch.core.model import Avatar
+    from avatar_tpu_torch.io.calibration import CameraIntrin
+    from avatar_tpu_torch.perception.partgroups import SMPL24_GROUP_LUT
+    from avatar_tpu_torch.perception.rtree import RTree
+    from avatar_tpu_torch.render.renderer import AvatarRenderer
+    from avatar_tpu_torch.testing import synthetic_model
+    from avatar_tpu_torch.tracking import TrackerConfig
+    from avatar_tpu_torch.tracking_fused import (FusedTracker,
+                                                 _fused_frame_impl,
+                                                 unpack_diag)
+
+    size, wall = (256, 256), 6.0
+    intrin = CameraIntrin(fx=606.438, fy=606.351, cx=128.0, cy=128.0)
+    model = synthetic_model(detail=2, device=cuda)
+    gt = Avatar(model)
+    gt.randomize(seed=77)
+    gt.w *= 0.3
+    gt.p = np.array([0.0, 0.1, 4.6])
+    gt.r[0] = np.diag([-1.0, 1.0, -1.0])
+    step = rotation.so3_exp(torch.as_tensor(np.random.default_rng(8).normal(
+        0, 0.03, (24, 3)), dtype=torch.float32)).numpy()
+    frames = []
+    for _ in range(5):
+        gt.update()
+        depth = AvatarRenderer(gt, intrin).render_depth(size)
+        frames.append((np.where(depth > 0, depth, wall) * 1000).astype(
+            np.uint16))
+        gt.r = np.einsum("jab,jbc->jac", step, gt.r)
+        gt.p = gt.p + np.array([0.02, 0.0, 0.01])
+    trees = [RTree(f"data/bench_forest_r5{s}.srtr", device=cuda)
+             for s in ("", "_1", "_2")]
+    for t in trees:
+        t.partmap_type = 0
+    cfg = TrackerConfig(data_interval=3, min_points=300, rtree_interval=3,
+                        frame_icp_iters=1, reinit_icp_iters=1,
+                        initial_icp_iters=1, iters_per_icp=3,
+                        reinit_seeds=2, label_conf_thresh=0.55,
+                        beta_pose=0.3, seg_window=(252, 210),
+                        part_groups=tuple(SMPL24_GROUP_LUT))
+    tracker = FusedTracker(model, intrin, size, rtree=trees, config=cfg)
+    tracker.set_background(np.full(size, wall, np.float32))
+    assert tracker.track(frames[0]).ok
+    kw = tracker._frame_kwargs(cfg.frame_icp_iters * cfg.iters_per_icp)
+    th_prev = kw.pop("theta_prev")
+    th, com = tracker._theta, tracker.com_pre
+    before = nn_kernel.LAUNCHES["nn_argmin_ranges"]
+    results = tracker.track_batch(frames[1:])
+    torch.cuda.synchronize()
+    assert nn_kernel.LAUNCHES["nn_argmin_ranges"] > before
+    for i, (frame, res) in enumerate(zip(frames[1:], results)):
+        out = _fused_frame_impl(
+            tracker._ctx, tracker._ctx_fit, tracker._tree, model.parents,
+            tracker._upload(tracker._pre_stride(frame)),
+            tracker._zero_labels, tracker._bg, tracker._intrin4, th, com,
+            theta_prev=th_prev, **kw)
+        th_prev, th, com = th, out.theta, out.com_pre
+        for a, b in zip(tracker.batch_thetas, out.theta):
+            assert torch.equal(a[i], b), f"frame {i + 1}"
+        diag = unpack_diag(out.host_diag, tracker.num_parts)
+        assert (res.n_points, res.fit_info) == (
+            diag.n_points, tracker._fit_info(diag))
+    assert all(r.ok for r in results)
+    assert torch.equal(tracker.com_pre, com)

@@ -12,7 +12,9 @@ path); the fits are held to at most 7 LM steps after the cold reinit
 """
 
 import dataclasses
+import json
 import os
+import re
 import sys
 import threading
 
@@ -255,10 +257,41 @@ def test_demo_adds_nothing_to_the_tracker(scene, tmp_path, monkeypatch,
         np.testing.assert_array_equal(joints, r[3])
 
 
-def test_demo_throughput_is_refused(scene):
+def test_demo_throughput_is_refused(scene, tmp_path, monkeypatch, capsys):
+    """``--throughput 2 --fused`` (refused before the port had a batch
+    path) tracks the first frame, then the rest as batches of 2, prints
+    the reference's line and honours ``--metrics``: its tracked count, its
+    metrics lines and its poses equal ``track_batch`` driven directly on
+    the tracker it built, to the bit.  (On this small scene the fused
+    tracker loses both batch frames at the root-jump gate, with ``track``
+    as with ``track_batch``.)"""
     ds, trees = scene
-    with pytest.raises(SystemExit, match="A9"):
-        tdemo.main([ds, trees[0], "--fused", "--throughput", "2", *CPU])
+    log = []
+    _recording_tracker(monkeypatch, ttracking_fused, "FusedTracker", log,
+                       fused=True)
+    metrics = str(tmp_path / "m.jsonl")
+    tdemo.main([ds, trees[0], *DEMO_ARGS, "--part-groups", "--fused",
+                "--throughput", "2", "--metrics", metrics, *CPU])
+    built = log[0]
+    monkeypatch.undo()
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-1] == f"[demo] metrics written to {metrics}"
+    m = re.fullmatch(r"\[demo\] (\d+) frames in \d+\.\d\ds \(\d+\.\d fps, "
+                     r"(\d+) tracked\), batch=2", out[-2])
+    assert m, out[-2]
+    direct = ttracking_fused.FusedTracker(
+        built.model, built.intrin, built.image_size, rtree=built.rtree,
+        config=dataclasses.replace(built.config))
+    data = TDataset(ds, pad=8)
+    head = direct.track(data.xyz(0))
+    res = direct.track_batch([data.xyz(1), data.xyz(2)])
+    assert head.ok and (int(m[1]), int(m[2])) == (2, sum(r.ok for r in res))
+    with open(metrics) as f:
+        lines = [json.loads(ln) for ln in f]
+    assert [(r["ok"], r["n_points"]) for r in lines] == [
+        (r.ok, r.n_points) for r in [head, *res]]
+    for a, b in zip(built.batch_thetas, direct.batch_thetas):
+        assert torch.equal(a, b)
 
 
 class _Stub:

@@ -289,6 +289,8 @@ def _snapshot(tracker):
     state = {k: getattr(tracker, k) for k in tracker._WARM_STATE}
     state["_starve"] = tracker._starve.copy()
     state["limb_recoveries"] = dict(tracker.limb_recoveries)
+    state["_batch_q"] = list(tracker._batch_q)
+    state["_pending_q"] = list(tracker._pending_q)
     state["timer.stats"] = {k: list(v) for k, v in
                             tracker.timer.stats.items()}
     return state
@@ -312,7 +314,8 @@ def test_warmup_leaves_no_trace(tmp_path):
     on a fresh tracker and again mid-sequence) is in the state it was in
     before, ``first_init`` and ``timer.stats`` included, writes nothing to
     an open metrics log, and tracks the frames of an unwarmed tracker bit
-    for bit.  ``warmup(batch > 0)`` raises: the port has no batch path."""
+    for bit.  ``warmup(batch=2)`` also runs a batch of two and leaves
+    ``batch_thetas`` and the batches and frames in flight as they were."""
     tmodel = t_synthetic_model(detail=2, device="cpu")
     frames = _frames(j_synthetic_model(detail=2))
     cfg = dict(CFG, refine_every=2, refine_steps=2, shape_refit_after=1)
@@ -359,8 +362,17 @@ def test_warmup_leaves_no_trace(tmp_path):
     warm.close_metrics()
     lines = (tmp_path / "warm.jsonl").read_text().splitlines()
     assert [json.loads(ln)["frame"] for ln in lines] == [0, 1, 2]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        warm.warmup(frames[0], batch=1)
+    warm.track_batch(frames[1:3])
+    warm.track_batch_async(frames[1:3])           # a batch in flight
+    assert warm.track_async(frames[2]) is None     # and a frame
+    assert warm.batch_thetas is not None and warm._pending_q
+    before = _snapshot(warm)
+    batches, run_batch = [], warm._run_batch
+    warm._run_batch = lambda dep_b, *a: (batches.append(len(dep_b)),
+                                         run_batch(dep_b, *a))[1]
+    warm.warmup(frames[0], batch=2)
+    assert batches == [2]
+    _same_state(_snapshot(warm), before)
 
 
 def test_metrics_log_matches_reference(planned_nn, tmp_path):
