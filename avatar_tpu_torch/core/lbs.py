@@ -67,6 +67,21 @@ def _lifting_pointers(parents: Tuple[int, ...]) -> Tuple[Tuple[int, ...], ...]:
     return tuple(rounds)
 
 
+@functools.lru_cache(maxsize=64)
+def fk_indices(parents: Tuple[int, ...], device: torch.device
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """The index tensors of ``fk`` on ``device``, built once per
+    ``(parents, device)``: each is a host-to-device copy, which a CUDA graph
+    cannot capture and which synchronises an eager step.  (the parent of
+    each joint, the root its own; one pointer table per doubling round,
+    with the sentinel slot J)."""
+    J = len(parents)
+    par = torch.tensor([parents[i] if parents[i] >= 0 else i
+                        for i in range(J)], device=device)
+    return par, tuple(torch.tensor(ptr + (J,), device=device)
+                      for ptr in _lifting_pointers(parents))
+
+
 def fk(parents: Tuple[int, ...], rots: torch.Tensor, p: torch.Tensor,
        j_init: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward kinematics by pointer doubling: ceil(log2(chain length))
@@ -74,15 +89,13 @@ def fk(parents: Tuple[int, ...], rots: torch.Tensor, p: torch.Tensor,
     tg [J,3] posed joint positions)."""
     J = len(parents)
     dev = rots.device
-    par = torch.tensor([parents[i] if parents[i] >= 0 else i
-                        for i in range(J)], device=dev)
+    par, rounds = fk_indices(tuple(parents), dev)
     t_local = j_init - j_init[par]
     t_local = torch.cat([p[None], t_local[1:]], dim=0)
     R = torch.cat([rots, torch.eye(3, dtype=rots.dtype, device=dev)[None]])
     t = torch.cat([t_local, torch.zeros((1, 3), dtype=rots.dtype,
                                         device=dev)])
-    for ptr in _lifting_pointers(parents):
-        a = torch.tensor(ptr + (J,), device=dev)
+    for a in rounds:
         Ra = R[a]
         ta = t[a]
         R = torch.einsum("jab,jbc->jac", Ra, R)

@@ -227,24 +227,25 @@ def matcher(data_pts: torch.Tensor, data_part: torch.Tensor,
             model_part: torch.Tensor, num_parts: int, chunk: int = 512,
             model_sorted: bool = False):
     """The NN of one fit, chosen once from N: the planned NN (B1) over a
-    plan built here at N % 256 == 0, else ``find_nn_stats`` (B2), the
-    reference's two branches.  Returns the data rows as the fit must use
-    them (part-sorted when planned), their labels, and
-    ``match(model_cloud, visible, wild, wild_gate2) -> CorrStats`` with
-    ``corr`` aligned with those rows."""
+    plan built here at N % 256 == 0, else the unplanned one of
+    ``find_nn_stats`` (B2), the reference's two branches.  Returns the data
+    rows as the fit must use them (part-sorted when planned), their
+    labels, and the search as ``nn_kernel.nn_match`` takes it, for
+    ``search``."""
     if data_pts.shape[0] % 256:
-        prepared = unplanned_match(data_pts, data_part, model_part)
-
-        def match(x, vis, wild, wild_gate2):
-            return find_nn_stats(data_pts, data_part, x, model_part, vis,
-                                 wild=wild, wild_gate2=wild_gate2,
-                                 match=prepared)
-        return data_pts, data_part, match
-
+        return data_pts, data_part, unplanned_match(data_pts, data_part,
+                                                    model_part)
     plan = make_nn_plan(data_pts, data_part, model_part, num_parts=num_parts,
                         tile_n=256, chunk=chunk, model_sorted=model_sorted)
+    return plan.dpts, plan.dpart, plan.match
 
-    def match(x, vis, wild, wild_gate2):
-        return find_nn_stats_planned(plan, x, vis, wild=wild,
-                                     wild_gate2=wild_gate2)
-    return plan.dpts, plan.dpart, match
+
+def search(match: nn_kernel.MatchArgs, model_cloud: torch.Tensor,
+           visible: torch.Tensor, wild: int = -1000,
+           wild_gate2=None) -> torch.Tensor:
+    """``corr`` of one search of ``matcher``'s rows against the model as
+    posed: what ``find_nn_stats_planned`` and ``find_nn_stats`` return under
+    that name, without the per-vertex statistics."""
+    center = torch.mean(model_cloud, dim=0)
+    return nn_kernel.nn_match(match, model_cloud, center, visible, wild,
+                              wild_gate2)[1]

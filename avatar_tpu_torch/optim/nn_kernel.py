@@ -14,14 +14,20 @@ entry points bound through ctypes.
 The wrappers take the plain version only for tensors on the CPU.  For CUDA
 tensors they launch the kernel or raise; there is no fallback.
 ``LAUNCHES`` counts searches by kernel name, at the one launch site, so a
-run can show that its path went through each kernel.
+run can show that its path went through each kernel.  A search captured
+into a CUDA graph (the LM step of ``gauss_newton.fit``) launches nothing
+while it is captured: it is counted in the capture's ``captured_launches``
+record instead, and each replay of the graph adds that record to
+``LAUNCHES`` (``count_replay``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
+import threading
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -46,6 +52,7 @@ _INVALID = -2 ** 31
 # searches launched since the last reset, by kernel name
 LAUNCHES = {"nn_argmin_ranges": 0, "nn_argmin": 0}
 _lib = None          # the bound library, once built
+_capture = threading.local()   # .counts: the capture being recorded
 
 
 def _nvcc() -> str:
@@ -92,6 +99,28 @@ def build() -> str:
     return log
 
 
+@contextlib.contextmanager
+def captured_launches():
+    """Record, by kernel name, the searches captured into a CUDA graph
+    inside the block (none of them launches while it is captured).  Yields
+    the record; ``count_replay(record)`` after each replay of the graph
+    counts what the replay launched."""
+    if getattr(_capture, "counts", None) is not None:
+        raise RuntimeError("captures do not nest")
+    _capture.counts = counts = dict.fromkeys(LAUNCHES, 0)
+    try:
+        yield counts
+    finally:
+        _capture.counts = None
+
+
+def count_replay(counts: dict) -> None:
+    """Add the searches of one replay of a captured graph to
+    ``LAUNCHES``."""
+    for name, k in counts.items():
+        LAUNCHES[name] += k
+
+
 _scratch = {}        # (device index, stream) -> uint8 scratch tensor
 _scratch_bytes = {}  # (n, pp) -> bytes one launch needs
 
@@ -109,18 +138,30 @@ def _launch(name: str, entry: str, dev: torch.device, n: int, pp: int,
     stream)`` on the current stream of the tensors' device, its error
     raised, the search counted under ``name``.  The scratch (packed model,
     merge keys, tickets) is kept per device and stream: launches of one
-    stream run in order, and every launch resets what it uses."""
+    stream run in order, and every launch resets what it uses.  Under
+    graph capture the scratch is a temporary of the capture instead (from
+    the graph's pool, as every intermediate of the captured step), so no
+    graph holds the address of a scratch that eager work may replace, and
+    the search is counted in the capture's record."""
     build()
+    capturing = torch.cuda.is_current_stream_capturing()
+    counts = getattr(_capture, "counts", None)
+    if capturing and counts is None:
+        raise RuntimeError("a search captured outside captured_launches(): "
+                           "its replays would not be counted")
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
     stream = _current_stream(index)
     need = _scratch_bytes.get((n, pp))
     if need is None:
         need = _scratch_bytes[(n, pp)] = _lib.avatar_nn_scratch_bytes(n, pp)
-    scratch = _scratch.get((index, stream))
-    if scratch is None or scratch.numel() < need:
-        scratch = _scratch[(index, stream)] = torch.empty(
-            need, dtype=torch.uint8, device=dev)
+    if capturing:
+        scratch = torch.empty(need, dtype=torch.uint8, device=dev)
+    else:
+        scratch = _scratch.get((index, stream))
+        if scratch is None or scratch.numel() < need:
+            scratch = _scratch[(index, stream)] = torch.empty(
+                need, dtype=torch.uint8, device=dev)
     fn = getattr(_lib, entry)
     if index == torch.cuda.current_device():
         rc = fn(*head, scratch.data_ptr(), *tail, stream)
@@ -129,7 +170,10 @@ def _launch(name: str, entry: str, dev: torch.device, n: int, pp: int,
             rc = fn(*head, scratch.data_ptr(), *tail, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    if capturing:
+        counts[name] += 1
+    else:
+        LAUNCHES[name] += 1
 
 
 def _want(name: str, t: torch.Tensor, dev, dtype, shape) -> None:
@@ -333,6 +377,37 @@ def prepare_match(name: str, dpts, dpart, n: int, mperm, mpart, p: int,
                  for t in (dpts, dpart, mperm, mpart, cstart, cend))
     return MatchArgs(name, dpts, dpart, n, mperm, mpart, p, pp, cstart, cend,
                      tile_n, chunk, ptrs)
+
+
+_MATCH_TENSORS = ("dpts", "dpart", "mperm", "mpart", "cstart", "cend")
+
+
+def static_match(m: MatchArgs) -> MatchArgs:
+    """A search like ``m`` over buffers of its own, to be filled by
+    ``load_match``: a CUDA graph that captured a search through it reads
+    whatever plan was loaded last."""
+    t = {f: None if getattr(m, f) is None else
+         torch.empty_like(getattr(m, f), memory_format=torch.contiguous_format)
+         for f in _MATCH_TENSORS}
+    return prepare_match(m.name, t["dpts"], t["dpart"], m.n, t["mperm"],
+                         t["mpart"], m.p, m.pp, t["cstart"], t["cend"],
+                         m.tile_n, m.chunk)
+
+
+def match_key(m: MatchArgs) -> tuple:
+    """What a search's buffers and launch depend on, besides the values
+    ``load_match`` copies: its kernel, sizes and tensor shapes."""
+    return (m.name, m.n, m.p, m.pp, m.tile_n, m.chunk) + tuple(
+        None if getattr(m, f) is None else tuple(getattr(m, f).shape)
+        for f in _MATCH_TENSORS)
+
+
+def load_match(dst: MatchArgs, src: MatchArgs) -> None:
+    """Copy the tensors of ``src`` into the buffers of ``dst``, a
+    ``static_match`` of a search with the same ``match_key``."""
+    for f in _MATCH_TENSORS:
+        if getattr(src, f) is not None:
+            getattr(dst, f).copy_(getattr(src, f))
 
 
 def nn_match(m: MatchArgs, model_cloud, center, visible, wild: int = -1000,

@@ -70,6 +70,7 @@ class AvatarOptimizer:
             faces=tt(model.faces, torch.int32),
             model_part=tt(model_part, torch.int32),
             prior=PriorData(pp.means, pp.prec_cho, pp.consts_log))
+        self._programs = {}     # the fit's LM programs (gauss_newton.fit)
         self._dtype = model.dtype
 
     # C++-style attribute aliases
@@ -137,13 +138,14 @@ class AvatarOptimizer:
         n_steps = int(icp_iters) * int(self.max_iters_per_icp)
         theta, diag = fit(
             ctx, ava.model.parents, t(pts), t(parts, torch.int32), theta0,
-            t(self.beta_pose), t(self.beta_shape), n_steps=n_steps,
+            float(self.beta_pose), float(self.beta_shape), n_steps=n_steps,
             use_jsr=ava.model.use_joint_shape_regressor,
             enable_occlusion=bool(self.enable_occlusion),
             robust=bool(self.robust), plane_weight=float(self.plane_weight),
             point_weight=float(self.point_weight),
             num_parts=int(self.num_parts), huber_k=float(self.huber_k),
-            robust_per_part=bool(self.robust_per_part))
+            robust_per_part=bool(self.robust_per_part),
+            programs=self._programs)
         ava.p = theta.p.cpu().numpy().astype(np.float64)
         ava.r = theta.rots.cpu().numpy().astype(np.float64)
         ava.w = theta.w.cpu().numpy().astype(np.float64)

@@ -17,7 +17,11 @@ helpers say where a frame's time goes on the device, in two ways:
 
 The tracker's stages and the parts of an LM step are marked with
 ``scope(name)`` (``tracking_fused._fused_frame_impl``, ``tracking.Tracker``,
-``optim/gauss_newton``).  A scope always enters
+``optim/gauss_newton``).  On the card an LM step is the replay of a captured
+CUDA graph, marked as one scope, ``step``, beside the host read ``sync``;
+the parts of a step show only in a run with ``gauss_newton.eager_steps()``,
+and a scope opened while a graph is being captured records no event.  A
+scope always enters
 ``torch.profiler.record_function``, which is what ``trace_attribution``
 reads back.  Only while a ``stage_clock`` is active on the calling thread
 does it also record an event at entry and exit (a CUDA event on the
@@ -123,6 +127,11 @@ class StageClock:
         self._records = []
 
 
+def _capturing() -> bool:
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
 class scope:
     """Mark a stage: ``with scope("fit"): ...``.  Scopes nest."""
 
@@ -135,6 +144,9 @@ class scope:
         self._fn = torch.profiler.record_function(self.name)
         self._fn.__enter__()
         self._clock = getattr(_active, "clock", None)
+        if self._clock is not None and self._clock.on_card and \
+                _capturing():
+            self._clock = None      # an event would be captured, not timed
         if self._clock is not None:
             self._rec = self._clock._enter(self.name)
         return self
@@ -151,6 +163,18 @@ def current_scope() -> str:
     clock, "" outside every scope or with no clock active."""
     clock = getattr(_active, "clock", None)
     return _rel(clock._stack) if clock is not None and clock._stack else ""
+
+
+@contextlib.contextmanager
+def unclocked():
+    """Suspend this thread's stage clock for the block (the one-time
+    warm-up and capture of a CUDA graph, which are no frame's time)."""
+    clock = getattr(_active, "clock", None)
+    _active.clock = None
+    try:
+        yield
+    finally:
+        _active.clock = clock
 
 
 @contextlib.contextmanager

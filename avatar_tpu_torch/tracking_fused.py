@@ -9,10 +9,15 @@ One frame, on the tracker's device:
     -> ICP/LM fit (``optim/gauss_newton.fit``, whose NN runs the CUDA kernel
     of ``optim/nn_kernel.py`` on every LM step)
 
-The reference compiles the frame into one XLA program.  Here it runs
+The reference compiles the frame into one XLA program.  Here the LM fits
+run as the reference's compiled loop does, each step a replayed CUDA graph
+on the card (``optim/gauss_newton``), and the rest of the frame runs
 eagerly: the tracked window's origin, each connected-components sweep and
 each LM step read a flag from the device, and the host reads one packed
-diagnostics vector per frame.  The reinit / loss state machine stays on
+diagnostics vector per frame.  The tracker keeps its fits' programs and
+graphs (``_programs``), so they go with it; its fit contexts are built
+once and never replaced (a shape refit changes theta, not the context),
+so no fit rebuilds a program.  The reinit / loss state machine stays on
 the host as in the reference.
 
 On refine frames (``TrackerConfig.refine_every``) the same data bucket is
@@ -189,13 +194,16 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
                       ring_faces: Optional[torch.Tensor] = None,
                       refine_steps: int = 0, refine_beta=0.1,
                       theta_prev: Optional[Theta] = None,
-                      extrap=0.0) -> FrameOut:
+                      extrap=0.0, programs: Optional[dict] = None
+                      ) -> FrameOut:
     """One tracked frame.
 
     depth [H, W]: f32 meters, or uint16 millimeters bit-cast to int16 for
     the upload (converted after striding).  labels_full [H, W] uint8 oracle
     labels (used when ``use_forest`` is off); bg_depth [H, W] background
     depth (used with ``use_bgsub``); intrin4 = [fx, fy, cx, cy].
+    ``programs``: the dict in which the fits keep their LM programs and
+    graphs (``optim/gauss_newton``; the tracker's own).
     """
     dev = depth.device
     fx, fy, cx, cy = intrin4[0], intrin4[1], intrin4[2], intrin4[3]
@@ -507,7 +515,7 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
             robust_per_part=robust_per_part, beta_temp=beta_temp,
             clamp_angle=clamp_angle, freeze_shape=freeze_shape,
             model_sorted=fit_sorted and ctx_fit is not None,
-            wild_gate=wild_gate, wild_weight=wild_weight)
+            wild_gate=wild_gate, wild_weight=wild_weight, programs=programs)
     if refine_steps > 0 and ring_faces is not None:
         # per-frame exactness stage: re-fit the SAME data bucket against the
         # mesh surface from the tracked pose, with the full model context
@@ -518,7 +526,8 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
                 parts.contiguous(), theta, beta_pose * refine_beta,
                 beta_shape * refine_beta, n_steps=refine_steps,
                 num_parts=num_parts, wild=num_parts,
-                wild_gate2=wild_gate * wild_gate, freeze_shape=freeze_shape)
+                wild_gate2=wild_gate * wild_gate, freeze_shape=freeze_shape,
+                programs=programs)
     with scope("glue/diag"):
         host_diag = torch.cat([
             n_points[None].to(dtype), diag.cost[None].to(dtype),
@@ -719,6 +728,7 @@ class FusedTracker:
         self._last_root_z = None  # last-known body camera depth (m)
         self._frame_no = 0        # steady-state frames (refine cadence)
         self._shape_refit_in: Optional[int] = None
+        self._programs = {}   # the fits' LM programs (optim/gauss_newton)
         self._ring = (torch.as_tensor(vertex_face_rings(
             model.faces, model.num_points()), device=dev)
             if self.config.refine_every > 0 else None)
@@ -914,7 +924,7 @@ class FusedTracker:
             refine_steps=c.refine_steps if refine else 0,
             refine_beta=k["refine_beta"],
             theta_prev=self._theta if is_reinit else self._theta_prev,
-            extrap=k["extrap"])
+            extrap=k["extrap"], programs=self._programs)
 
     # the per-frame tracking state, all of which warmup() leaves untouched
     _WARM_STATE = ("_theta", "_theta_prev", "com_pre", "reinit", "first_init",
@@ -931,7 +941,8 @@ class FusedTracker:
         ``track_batch`` over ``batch`` copies of ``frame``.  The first real
         frame then pays for none of what a process pays once: the build and
         load of the NN kernel, the allocator's pools, the NN scratch of each
-        fit bucket, the cuBLAS and cuSOLVER handles.  The per-frame tracking
+        fit bucket, the cuBLAS and cuSOLVER handles, and the capture of
+        each of its fits' LM steps as CUDA graphs.  The per-frame tracking
         state (the batch and async modes' included), the stage timer and an
         open metrics log are as before afterwards.  Call after
         ``set_background``."""

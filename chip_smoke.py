@@ -53,6 +53,20 @@ each (any failure exits non-zero and prints no result):
    batch=16)`` leaves the state as it was; 16 frames ping-ponged over the
    fixture (bench.py's batch width) as one batch and through ``track``.
    Frames per second of each mode.
+4c. graph — the LM loop as it runs on the card: each step of ``fit`` and
+   ``fit_refine`` a replay of one of two captured CUDA graphs, the host
+   reading (accept, stop) once after it.  On five paths (the fused
+   tracker's reinit frame and two steady frames, the accuracy mode's
+   refine frames, the host tracker's frames, a ``track_batch`` of 16) a
+   tracker with graphed fits and one whose fits run uncaptured go through
+   the same frames from the same state: every fit equal to the bit
+   (theta, cost, matches, accepted steps, last correspondences, part
+   counts), the poses equal, the same kernel launches (a replay counts the
+   searches it launches; a capture inside the run adds its one uncaptured
+   run of each step), every search of the eager run equal to its plain
+   version.  One eager step of the steady fit passes under
+   ``set_sync_debug_mode("error")``.  Prints each path's fit and frame
+   wall ms uncaptured ("before") and graphed ("after").
 5. render — the 6 ground-truth poses of tests/fixtures/
    torch_port_720p_refine.npz through ``Avatar.update`` and
    ``AvatarRenderer`` on the card: the uint16-mm scene against the
@@ -197,14 +211,31 @@ each (any failure exits non-zero and prints no result):
    share of each scope in which the card worked.  Fails unless the trace
    holds device events, every scope of phase 11 shows in it, the stages
    sum to ``total_ms`` and ``total_ms`` is not above the traced frames'
-   wall ms.
+   wall ms.  Phases 11 and 12 run each path with its LM steps uncaptured
+   (the per-part view of a step, ``lm_steps`` "eager") and the fused
+   reinit and steady and the host paths again graphed (``fit/step`` is a
+   replay; "graphed").
 
-The kernel counts are reset before each main path (phases 4, 4b, 6, 7, 8, 9,
-each tool run of 10b, the sharded track step of 10c, and 11) and read
-after it.  The paths search through the fused entry
-(``nn_kernel.nn_match``); every recorded search is run again through the
-fused and the raw entry and must equal the plain version: indices equal
-and d2 equal to the last bit.  The line before the last is the kernels'
+Graphed and eager runs.  Every tracker's fit on the card replays its LM
+steps as CUDA graphs, as a user runs it, unless
+``gauss_newton.eager_steps()`` is active: only the eager half of 4c and
+the "eager" lines of phases 11 and 12 (the per-part view of a step) turn
+it on.  A fit called directly with no ``programs`` (phases 6 and 9) runs
+its steps uncaptured, as it would for a user.  Graphed and eager fits
+equal each other to the bit, so the phases that compare one with the
+other hold that too.
+
+The kernel counts are reset before each main path (phases 4, 4b, 4c, 6,
+7, 8, 9, each tool run of 10b, the sharded track step of 10c, and 11's
+graphed fused run) and read after it.  The paths search through the
+fused entry (``nn_kernel.nn_match``).  Every search of a recorded run is
+held against the plain version on its inputs: a search called from
+Python is recorded at the call; a search inside a replayed graph after
+the replay, from the program's buffers (the iterate it started from, the
+visibility and the correspondences it wrote).  The path's own
+correspondences must equal the plain version's, and the search run again
+through the fused and the raw entry too: indices equal and d2 equal to
+the last bit.  The line before the last is the kernels'
 JSON record (``ms`` is ``device_ms``); the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -475,28 +506,63 @@ def _reset_counts() -> None:
     nn_kernel.LAUNCHES.update(dict.fromkeys(nn_kernel.LAUNCHES, 0))
 
 
-@contextlib.contextmanager
-def _recording(calls: list, name: str = "nn_argmin_ranges"):
-    """Append the arguments (tensors that change copied) of every search
-    the block makes through ``nn_kernel.nn_match`` under the kernel
-    ``name`` to ``calls``."""
+def _frozen(m):
+    """The search ``m`` over copies of its tensors (a fit program's search
+    reads buffers that its next fit loads anew)."""
     from avatar_tpu_torch.optim import nn_kernel
 
-    real = nn_kernel.nn_match
+    c = nn_kernel.static_match(m)
+    nn_kernel.load_match(c, m)
+    return c
+
+
+def _cloned(v):
+    return v.clone() if hasattr(v, "clone") else v
+
+
+@contextlib.contextmanager
+def _recording(calls: list, name: str = "nn_argmin_ranges"):
+    """Append every search of the kernel ``name`` that the block makes to
+    ``calls``: (search, model cloud, center, visible, wild, gate, the
+    path's own corr), tensors copied.  A search made by a Python call (a
+    direct call, an uncaptured LM step) is recorded at the call through
+    ``nn_kernel.nn_match``; a search inside a replayed LM graph is no
+    Python call, and is recorded after each replay of a program's ``lin``
+    from the program's buffers: the iterate the replay started from, the
+    visibility it computed and the correspondences it wrote.  The block's
+    fits run as they would without it, graphed on the card."""
+    import torch
+
+    from avatar_tpu_torch.optim import gauss_newton, nn_kernel
+
+    real, real_run = nn_kernel.nn_match, gauss_newton._Program.run
 
     def record(m, model_cloud, center, visible, wild=-1000, wild_gate2=None):
-        if m.name == name:
-            gate = wild_gate2.clone() if hasattr(wild_gate2, "clone") \
-                else wild_gate2
-            calls.append((m, model_cloud.clone(), center.clone(),
-                          visible.clone(), wild, gate))
-        return real(m, model_cloud, center, visible, wild, wild_gate2)
+        out = real(m, model_cloud, center, visible, wild, wild_gate2)
+        if m.name == name and not (model_cloud.is_cuda and
+                                   torch.cuda.is_current_stream_capturing()):
+            calls.append((_frozen(m), model_cloud.clone(), center.clone(),
+                          visible.clone(), wild, _cloned(wild_gate2),
+                          out[1].clone()))
+        return out
 
-    nn_kernel.nn_match = record
+    def run(prog, relinearize, graphed):
+        b = prog.b
+        if not (graphed and relinearize and b.match.name == name):
+            return real_run(prog, relinearize, graphed)
+        x = b.x.clone()
+        out = real_run(prog, relinearize, graphed)
+        calls.append((_frozen(b.match), x, torch.mean(x, dim=0),
+                      b.vis.clone(), prog.wild,
+                      _cloned(getattr(b, "wild_gate2", None)),
+                      b.corr.clone()))
+        return out
+
+    nn_kernel.nn_match, gauss_newton._Program.run = record, run
     try:
         yield
     finally:
-        nn_kernel.nn_match = real
+        nn_kernel.nn_match, gauss_newton._Program.run = real, real_run
 
 
 def _pairs(args, kw) -> int:
@@ -525,9 +591,10 @@ def _bound(args, kw):
 
 
 def _hold_recorded(tag: str, calls: list, dev=None) -> float:
-    """Every recorded search again, through the fused and the raw entry,
-    against the plain version: indices equal and d2 equal to the last bit.
-    Returns the largest d2 abs error (0).  With ``dev``, also the spread of
+    """Every recorded search against the plain version on its inputs: the
+    path's own correspondences, and the search again through the fused and
+    the raw entry, indices equal and d2 equal to the last bit.  Returns
+    the largest d2 abs error (0).  With ``dev``, also the spread of
     scanned pairs over the 64-row groups of the launches, and the kernel's
     times on the last recorded search."""
     import torch
@@ -537,7 +604,7 @@ def _hold_recorded(tag: str, calls: list, dev=None) -> float:
     if not calls:
         fail(f"[{tag}] no kernel call recorded")
     worst, shapes, pairs, bound, per_group = 0.0, set(), 0, 0.0, []
-    for m, cloud, center, visible, wild, gate in calls:
+    for m, cloud, center, visible, wild, gate, corr in calls:
         args = nn_kernel.match_inputs(m, cloud, center, visible)
         kw = dict(tile_n=m.tile_n, chunk=m.chunk, wild=wild)
         n = args[0].shape[0]
@@ -548,6 +615,9 @@ def _hold_recorded(tag: str, calls: list, dev=None) -> float:
         plain = nn_kernel.nn_match_ref(m, cloud, center, visible, wild, gate,
                                        argmin=lambda *a, **k: ref)
         torch.cuda.synchronize()
+        if not torch.equal(corr, plain[1]):
+            fail(f"[{tag}] recorded search: the path's corr differs from "
+                 "the plain version")
         for what, x, y in zip(("d2", "corr", "wgt", "n_matched"), fused,
                               plain):
             if not torch.equal(x, y):
@@ -562,8 +632,9 @@ def _hold_recorded(tag: str, calls: list, dev=None) -> float:
                                       m.tile_n // 64).tolist()))
     if worst != 0.0:
         fail(f"[{tag}] recorded launches: d2 max abs err {worst:.3g}, not 0")
-    print(f"[{tag}] fused and raw entry vs plain on the inputs of its "
-          f"{len(calls)} searches (N, Pp, chunk, wild: {sorted(shapes)}): "
+    print(f"[{tag}] the path's corr and the fused and raw entry vs plain on "
+          f"the inputs of its {len(calls)} searches (N, Pp, chunk, wild: "
+          f"{sorted(shapes)}): "
           f"indices equal, d2 max abs err {worst:.3g}; "
           f"{pairs / len(calls):.0f} scanned pairs per launch, bound "
           f"{bound / len(calls) * 1e3:.3f} us per launch", flush=True)
@@ -955,6 +1026,222 @@ def phase_batch(scene):
         frames_per_second={k: round(v, 3) for k, v in fps.items()},
         frames=len(seq), batch_width=BATCH_WIDTH)), flush=True)
     return launches, max_err
+
+
+GRAPH_FRAMES = 3        # phase 4c: a reinit frame and two steady frames
+
+
+@contextlib.contextmanager
+def _fit_calls(calls: list):
+    """Append (kind, theta, diag, wall ms) of every ``fit`` and
+    ``fit_refine`` the trackers make in the block, each timed from a
+    synchronise to a synchronise."""
+    import torch
+
+    from avatar_tpu_torch import tracking_fused
+    from avatar_tpu_torch.optim import optimizer
+
+    real = (tracking_fused.fit, tracking_fused.fit_refine, optimizer.fit)
+
+    def timed(kind, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            theta, diag = fn(*a, **kw)
+            torch.cuda.synchronize()
+            calls.append((kind, theta, diag,
+                          (time.perf_counter() - t0) * 1e3))
+            return theta, diag
+        return call
+
+    tracking_fused.fit = timed("fit", real[0])
+    tracking_fused.fit_refine = timed("refine", real[1])
+    optimizer.fit = timed("fit", real[2])
+    try:
+        yield
+    finally:
+        tracking_fused.fit, tracking_fused.fit_refine, optimizer.fit = real
+
+
+def _graph_run(tracker, drive, searches: bool):
+    """Drive a tracker with its fits recorded, and its searches with
+    ``searches`` (a run left unrecorded times its fits as a user runs
+    them).  Returns (fits, frame rows, kernel launches, B1 searches, B2
+    searches, programs captured in the run)."""
+    import torch
+
+    from avatar_tpu_torch.optim import gauss_newton, nn_kernel
+
+    fits, b1, b2 = [], [], []
+    captures = gauss_newton.CAPTURES
+    _reset_counts()
+    with contextlib.ExitStack() as stack:
+        if searches:
+            stack.enter_context(_recording(b1))
+            stack.enter_context(_recording(b2, "nn_argmin"))
+        stack.enter_context(_fit_calls(fits))
+        rows = drive(tracker)
+    torch.cuda.synchronize()
+    return (fits, rows, dict(nn_kernel.LAUNCHES), b1, b2,
+            gauss_newton.CAPTURES - captures)
+
+
+def _same_fit(a, b) -> bool:
+    """Two recorded fits equal to the bit: theta, cost, matches, accepted
+    steps, last correspondences and part counts."""
+    if a[0] != b[0]:
+        return False
+    return all(_bit_equal(x, y) for x, y in zip((*a[1], *a[2]),
+                                                (*b[1], *b[2])))
+
+
+def phase_graph(scene):
+    """The LM loop as it runs on the card: every step of ``fit`` and
+    ``fit_refine`` a replay of one of two captured CUDA graphs, the host
+    reading (accept, stop) once after it.  On five paths -- the fused
+    tracker's reinit frame (three seeded fits) and steady frames, the
+    accuracy mode's refine frames (``fit`` then ``fit_refine``), the host
+    tracker's frames and a ``track_batch`` of 16 -- a tracker with graphed
+    fits and one whose fits run uncaptured (``eager_steps``) go through the
+    same frames from the same state: every fit equal to the bit (theta,
+    cost, matches, accepted steps, last correspondences, part counts), the
+    frames' poses equal, the same kernel launches (the replays count the
+    searches they launch), every search of the eager run equal to its
+    plain version (the graphed run is left unrecorded, for its times; the
+    other phases hold graphed searches to the plain version).  One eager
+    step of the steady fit passes under ``set_sync_debug_mode("error")``.
+    Prints, per path, the fit's and the frame's wall ms uncaptured (before)
+    and graphed (after).  Returns the
+    graphed runs' launches and the recorded searches' largest d2 error."""
+    import torch
+
+    from avatar_tpu_torch.optim import gauss_newton, nn_kernel
+
+    tag = "graph"
+    frames = scene.frames
+    xyzs = [scene.intrin.depth_to_xyz_np(f.astype(np.float32) * 1e-3)
+            for f in frames]
+    order = [1, 2, 3, 4, 5, 4, 3, 2]
+    wide = [frames[order[i % len(order)]] for i in range(BATCH_WIDTH)]
+
+    def frames_of(seq):
+        def drive(tracker):
+            rows = []
+            for frame in seq[:GRAPH_FRAMES]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = tracker.track(frame)
+                torch.cuda.synchronize()
+                rows.append((res.ok, (time.perf_counter() - t0) * 1e3,
+                             _pose_bytes(tracker)))
+            return rows
+        return drive
+
+    def batch(tracker):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = tracker.track_batch(wide)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(wide)
+        return [(all(r.ok for r in res), ms, b"".join(
+            t.cpu().numpy().tobytes() for t in tracker.batch_thetas))]
+
+    acc = dict(refine_every=1, refine_steps=2)
+    paths = (("fused", scene.tracker, frames_of(frames), False),
+             ("accuracy", lambda: scene.tracker(**acc), frames_of(frames),
+              False),
+             ("host", lambda: _host_tracker(scene), frames_of(xyzs), False),
+             ("batch16", scene.tracker, batch, True))
+    launches = dict.fromkeys(nn_kernel.LAUNCHES, 0)
+    max_err, summary = 0.0, {}
+    for path, make, drive, steady_first in paths:
+        runs = {}
+        for mode in ("eager", "graphed"):
+            tracker = make()
+            with contextlib.ExitStack() as stack:
+                if mode == "eager":
+                    stack.enter_context(gauss_newton.eager_steps())
+                if hasattr(tracker, "warmup"):
+                    # the graphs of every fit the tracker makes are
+                    # captured here, not inside a timed frame
+                    tracker.warmup(frames[0])
+                if steady_first:
+                    tracker.track(frames[0])
+                runs[mode] = _graph_run(tracker, drive, mode == "eager")
+        (f_e, r_e, n_e, b1, b2, _), (f_g, r_g, n_g, _, _, caps) = \
+            runs["eager"], runs["graphed"]
+        if not f_e or len(f_e) != len(f_g):
+            fail(f"[{tag}] {path}: {len(f_g)} graphed fits against "
+                 f"{len(f_e)} eager ones")
+        for i, (a, b) in enumerate(zip(f_e, f_g)):
+            if not _same_fit(a, b):
+                fail(f"[{tag}] {path}: fit {i} ({a[0]}) graphed differs from "
+                     "the eager fit (theta, cost, matches, accepted steps, "
+                     "corr or part counts)")
+        if [(ok, pose) for ok, _, pose in r_e] != \
+                [(ok, pose) for ok, _, pose in r_g] or \
+                not all(ok for ok, _, _ in r_g):
+            fail(f"[{tag}] {path}: the graphed frames' poses differ from "
+                 "the eager frames' (or a frame lost track)")
+        # a capture inside the run (the host tracker has no warmup) first
+        # runs its step functions once uncaptured: one more search each
+        want = {k: v + (caps if k == "nn_argmin_ranges" else 0)
+                for k, v in n_e.items()}
+        if n_g != want or not n_g["nn_argmin_ranges"]:
+            fail(f"[{tag}] {path}: kernel launches graphed {n_g}, eager "
+                 f"{n_e} and {caps} captures in the run: the replays must "
+                 "count what they launch")
+        for name in launches:
+            launches[name] += n_g[name]
+        max_err = max(max_err, _hold_recorded(f"{tag} {path}", b1))
+        if b2:
+            max_err = max(max_err, _hold_recorded(f"{tag} {path} B2", b2))
+        kinds = sorted({k for k, *_ in f_g})
+        fit_ms = {mode: {k: [round(ms, 3) for kind, _, _, ms in fl
+                             if kind == k] for k in kinds}
+                  for mode, fl in (("eager", f_e), ("graphed", f_g))}
+        steps = [int(d.inner_iters) for _, _, d, _ in f_g]
+        summary[path] = dict(
+            fits=len(f_g), accepted_steps=steps, launches=n_g,
+            captures_in_run=caps,
+            fit_ms=fit_ms,
+            frame_ms={"eager": [round(ms, 3) for _, ms, _ in r_e],
+                      "graphed": [round(ms, 3) for _, ms, _ in r_g]})
+        for mode, fl, rl in (("eager", f_e, r_e), ("graphed", f_g, r_g)):
+            print(f"[{tag}] {path} {mode}"
+                  f"{' (before)' if mode == 'eager' else ' (after)'}: fit ms "
+                  + "; ".join(f"{k} " + ", ".join(
+                      f"{ms:.1f}" for kind, _, _, ms in fl if kind == k)
+                      for k in kinds)
+                  + "; frame ms " + ", ".join(f"{ms:.1f}" for _, ms, _ in rl),
+                  flush=True)
+    # one eager step of the steady fit reads nothing from the device
+    key, prog = next((k, p) for k, p in reversed(
+        tracker._programs.items()) if k[0] == "fit")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        prog.fns["lin"]()
+        prog.fns["step"]()
+    except RuntimeError as e:
+        fail(f"[{tag}] an eager LM step synchronised: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"[{tag}] " + json.dumps(dict(
+        summary, sync_free_step=f"lin and step of the {key[0]} program at N="
+                       f"{prog.b.corr.shape[0]} under "
+                       "set_sync_debug_mode('error')")), flush=True)
+    return launches, max_err
+
+
+def _pose_bytes(tracker) -> bytes:
+    """A tracker's current pose as bytes (the fused tracker's theta, the
+    host tracker's avatar)."""
+    if hasattr(tracker, "_theta"):
+        return b"".join(t.cpu().numpy().tobytes() for t in tracker._theta)
+    return b"".join(np.asarray(a).tobytes() for a in (
+        tracker.ava.p, tracker.ava.r, tracker.ava.w))
 
 
 def _edges(img, jump):
@@ -2482,6 +2769,7 @@ def phase_mesh(scene, images=TRAIN_IMAGES, depth=TRAIN_DEPTH,
 FRAME_SCOPES = ("bgsub", "forest_walk", "blob_suppress", "fit")
 LM_SCOPES = ("lbs", "vis", "nn", "weights", "jacobian", "gram", "solve",
              "trial", "sync")
+GRAPHED_LM_SCOPES = ("lbs", "step", "sync")     # a replay is one scope
 COUNTED = 3     # frames of each path whose synchronising reads are counted
 
 
@@ -2599,7 +2887,7 @@ def _drive(track, frames, dev, outputs, mode: str = "plain"):
     return rows
 
 
-def _summary(tag, path, rows, counted) -> dict:
+def _summary(tag, path, rows, counted, steps="eager") -> dict:
     """One path's JSON line: per scope the medians over ``rows`` of the
     clock's elapsed ms (device timeline), host ms and entries, and over
     ``counted`` (the same frames in a pass of their own) of the
@@ -2625,7 +2913,8 @@ def _summary(tag, path, rows, counted) -> dict:
                   if v["depth"] == 1 and k != "diag_read")
         cover.append(top / st["frame"]["elapsed_ms"])
     line = dict(
-        path=path, frames=len(rows), counted_frames=len(counted),
+        path=path, lm_steps=steps, frames=len(rows),
+        counted_frames=len(counted),
         deterministic_algorithms=True, wall_ms=round(med(walls), 3),
         wall_ms_spread=[round(min(walls), 3), round(max(walls), 3)],
         frame_elapsed_ms=scopes["frame"]["elapsed_ms"],
@@ -2644,11 +2933,17 @@ def _summary(tag, path, rows, counted) -> dict:
     return line
 
 
-def _counted(tag, tracker, frames, dev, plain_rows):
+def _counted(tag, tracker, frames, dev, plain_rows, graphed=False):
     """The first frames again on a fresh fused tracker with the
-    synchronising reads counted; they must equal the plain run's."""
+    synchronising reads counted, its LM steps uncaptured unless
+    ``graphed``; they must equal the plain run's."""
+    from avatar_tpu_torch.optim import gauss_newton
+
     out = _fused_outputs(tracker)
-    rows = _drive(tracker.track, frames, dev, lambda: list(out), "count")
+    with contextlib.ExitStack() as stack:
+        if not graphed:
+            stack.enter_context(gauss_newton.eager_steps())
+        rows = _drive(tracker.track, frames, dev, lambda: list(out), "count")
     for i, (rp, rk) in enumerate(zip(plain_rows, rows)):
         if not _equal(rp["out"], rk["out"]):
             fail(f"[{tag}] frame {i}: the counted run differs from the plain "
@@ -2656,9 +2951,11 @@ def _counted(tag, tracker, frames, dev, plain_rows):
     return rows
 
 
-def _need_scopes(tag, path, have, fits=("fit",)):
-    want = set(FRAME_SCOPES) | {f"{f}/{s}" for f in fits for s in LM_SCOPES}
-    want |= {f"{f}/trial/lbs" for f in fits} | set(fits)
+def _need_scopes(tag, path, have, fits=("fit",), graphed=False):
+    lm = GRAPHED_LM_SCOPES if graphed else LM_SCOPES
+    want = set(FRAME_SCOPES) | {f"{f}/{s}" for f in fits for s in lm}
+    want |= set(fits) if graphed else (
+        {f"{f}/trial/lbs" for f in fits} | set(fits))
     missing = sorted(want - set(have))
     if missing:
         fail(f"[{tag}] {path}: scopes missing: {missing}")
@@ -2707,14 +3004,16 @@ def first_track(mode: str) -> None:
 def phase_stages(scene):
     """Where a tracked frame's time goes: the stage clock over the fused
     slice (with ``warmup`` and the metrics log, as a user drives it), the
-    accuracy mode and the host tracker.  Returns the kernel launches of
-    the clocked fused run, the recorded searches' largest d2 error and,
-    per path, the clock's summary for the trace phase."""
+    accuracy mode and the host tracker, their LM steps uncaptured (the
+    per-part view of a step), then the fused and host paths graphed.
+    Returns the kernel launches of the graphed clocked fused run, the
+    recorded searches' largest d2 error and, per path, the clock's summary
+    for the trace phase."""
     import tempfile
 
     import torch
 
-    from avatar_tpu_torch.optim import nn_kernel
+    from avatar_tpu_torch.optim import gauss_newton, nn_kernel
 
     dev, frames = scene.dev, scene.frames
     tag = "stages"
@@ -2742,7 +3041,7 @@ def phase_stages(scene):
         warm.warmup(frames[0])              # must not reach the log
         calls = []
         _reset_counts()
-        with _recording(calls):
+        with _recording(calls), gauss_newton.eager_steps():
             rows_w = _drive(warm.track, frames, dev, lambda: list(out_w),
                             "clock")
         launches = dict(nn_kernel.LAUNCHES)
@@ -2770,8 +3069,9 @@ def phase_stages(scene):
              f"with the reference's keys: {logged}")
     if launches["nn_argmin_ranges"] <= 0:
         fail(f"[{tag}] the clocked path never launched nn_argmin_ranges")
-    print(f"[{tag}] warmup {warmup_ms:.1f} ms (reinit, steady and "
-          "shape-refit variants on frame 0), state after it equal to the "
+    print(f"[{tag}] (LM steps uncaptured) warmup {warmup_ms:.1f} ms "
+          "(reinit, steady and shape-refit variants on frame 0), state "
+          "after it equal to the "
           f"state before; {len(frames)} frames of a warmed tracker under the "
           "stage clock equal a cold tracker's without it to the bit (theta, "
           f"labels, diag); metrics log {len(logged)} lines, none from "
@@ -2800,7 +3100,7 @@ def phase_stages(scene):
     out_p, out_k = _fused_outputs(a_plain), _fused_outputs(a_clock)
     rows_p = _drive(a_plain.track, frames, dev, lambda: list(out_p))
     calls = []
-    with _recording(calls):
+    with _recording(calls), gauss_newton.eager_steps():
         rows_k = _drive(a_clock.track, frames, dev, lambda: list(out_k),
                         "clock")
     for i, (rp, rk) in enumerate(zip(rows_p, rows_k)):
@@ -2826,7 +3126,7 @@ def phase_stages(scene):
                                   t.ava.w.copy(), t.com_pre.copy()]
     rows_p = _drive(h_plain.track, xyzs, dev, host_out(h_plain))
     calls = []
-    with _recording(calls):
+    with _recording(calls), gauss_newton.eager_steps():
         rows_k = _drive(h_clock.track, xyzs, dev, host_out(h_clock), "clock")
     for i, (rp, rk) in enumerate(zip(rows_p, rows_k)):
         if not rk["res"].ok or not _equal(rp["out"], rk["out"]) or \
@@ -2835,8 +3135,9 @@ def phase_stages(scene):
                  "plain one")
     _need_scopes(tag, "host", rows_k[1]["stages"])
     h_count = _host_tracker(scene)
-    counted = _drive(h_count.track, xyzs[:COUNTED], dev, host_out(h_count),
-                     "count")
+    with gauss_newton.eager_steps():
+        counted = _drive(h_count.track, xyzs[:COUNTED], dev,
+                         host_out(h_count), "count")
     lines["host_steady"] = _summary(tag, "host_steady", rows_k[1:],
                                     counted[1:])
     plain = [r["wall_ms"] for r in rows_p[1:]]
@@ -2844,6 +3145,53 @@ def phase_stages(scene):
           f"{np.median(plain):.1f}, spread {min(plain):.1f}-"
           f"{max(plain):.1f}", flush=True)
     max_err = max(max_err, _hold_recorded(tag + " host", calls))
+
+    # the fused and host paths again with their LM steps graphed, as a
+    # user runs them (the clocked runs above run their steps uncaptured:
+    # the per-part view of a step)
+    g_clock = scene.tracker()
+    g_clock.warmup(frames[0])
+    out_g = _fused_outputs(g_clock)
+    _reset_counts()
+    rows_g = _drive(g_clock.track, frames, dev, lambda: list(out_g),
+                    "clock")
+    launches = dict(nn_kernel.LAUNCHES)
+    for i, (rc, rg) in enumerate(zip(rows_c, rows_g)):
+        if not rg["res"].ok or not _equal(rc["out"], rg["out"]):
+            fail(f"[{tag}] graphed frame {i}: the clocked run differs from "
+                 "the plain one")
+    if launches["nn_argmin_ranges"] <= 0:
+        fail(f"[{tag}] the graphed clocked path never launched "
+             "nn_argmin_ranges")
+    print(f"[{tag}] {len(frames)} frames of a warmed tracker with graphed "
+          f"LM steps under the stage clock equal the cold tracker's; kernel "
+          f"launches {launches}", flush=True)
+    _need_scopes(tag, "fused graphed", rows_g[1]["stages"], graphed=True)
+    _need_scopes(tag, "fused reinit graphed", rows_g[0]["stages"],
+                 graphed=True)
+    g_count = scene.tracker()
+    g_count.warmup(frames[0])
+    counted = _counted(tag, g_count, frames[:COUNTED], dev, rows_c,
+                       graphed=True)
+    lines["fused_reinit_graphed"] = _summary(
+        tag, "fused_reinit_graphed", rows_g[:1], counted[:1], "graphed")
+    lines["fused_steady_graphed"] = _summary(
+        tag, "fused_steady_graphed", rows_g[1:], counted[1:], "graphed")
+    # the host tracker has no warmup: frame 0 captures the reinit fit's
+    # graphs and frame 1 the steady fit's, so its steady line takes frames
+    # 2-5 (and the counted frames 2-3)
+    h_graph = _host_tracker(scene)
+    rows_hg = _drive(h_graph.track, xyzs, dev, host_out(h_graph), "clock")
+    for i, (rp, rg) in enumerate(zip(rows_p, rows_hg)):
+        if not rg["res"].ok or not _equal(rp["out"], rg["out"]):
+            fail(f"[{tag}] graphed host frame {i}: differs from the plain "
+                 "run")
+    _need_scopes(tag, "host graphed", rows_hg[2]["stages"], graphed=True)
+    h_count = _host_tracker(scene)
+    counted = _drive(h_count.track, xyzs[:COUNTED + 1], dev,
+                     host_out(h_count), "count")
+    lines["host_steady_graphed"] = _summary(
+        tag, "host_steady_graphed", rows_hg[2:], counted[2:], "graphed")
 
     # a process's first track, cold against warmed, each in a process of
     # its own
@@ -2882,34 +3230,53 @@ def phase_trace(scene, lines):
     import torch
 
     from avatar_tpu_torch import profiling
+    from avatar_tpu_torch.optim import gauss_newton
 
     dev, frames = scene.dev, scene.frames
     tag = "trace"
     xyzs = [scene.intrin.depth_to_xyz_np(f.astype(np.float32) * 1e-3)
             for f in frames]
     acc = dict(refine_every=1, refine_steps=2)
-    paths = (("fused_reinit", scene.tracker(), frames, 0, 1, ("fit",)),
-             ("fused_steady", scene.tracker(), frames, 1, 5, ("fit",)),
+
+    def warmed(tracker):
+        tracker.warmup(frames[0])
+        return tracker
+
+    # the eager paths (LM steps uncaptured: the per-part view of a step),
+    # then the graphed ones as a user runs them (the host tracker, with no
+    # warmup, captures its graphs on frames 0 and 1)
+    paths = (("fused_reinit", scene.tracker(), frames, 0, 1, ("fit",), 0),
+             ("fused_steady", scene.tracker(), frames, 1, 5, ("fit",), 0),
              ("accuracy_steady", scene.tracker(**acc), frames, 1, 4,
-              ("fit", "refine")),
-             ("host_steady", _host_tracker(scene), xyzs, 1, 4, ("fit",)))
-    for path, tracker, seq, lo, hi, fits in paths:
-        for frame in seq[:lo]:
-            tracker.track(frame)
-        with tempfile.TemporaryDirectory() as tmp:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with profiling.device_trace(tmp, dev):
-                for frame in seq[lo:hi]:
-                    if not tracker.track(frame).ok:
-                        fail(f"[{tag}] {path}: a traced frame lost track")
+              ("fit", "refine"), 0),
+             ("host_steady", _host_tracker(scene), xyzs, 1, 4, ("fit",), 0),
+             ("fused_reinit_graphed", warmed(scene.tracker()), frames, 0, 1,
+              ("fit",), 1),
+             ("fused_steady_graphed", warmed(scene.tracker()), frames, 1, 5,
+              ("fit",), 1),
+             ("host_steady_graphed", _host_tracker(scene), xyzs, 2, 5,
+              ("fit",), 1))
+    for path, tracker, seq, lo, hi, fits, graphed in paths:
+        with contextlib.ExitStack() as stack:
+            if not graphed:
+                stack.enter_context(gauss_newton.eager_steps())
+            for frame in seq[:lo]:
+                tracker.track(frame)
+            with tempfile.TemporaryDirectory() as tmp:
                 torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3 / (hi - lo)
-            size = sum(os.path.getsize(os.path.join(tmp, f))
-                       for f in os.listdir(tmp))
-            t0 = time.perf_counter()
-            out = profiling.trace_attribution(tmp, hi - lo)
-            parse_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                with profiling.device_trace(tmp, dev):
+                    for frame in seq[lo:hi]:
+                        if not tracker.track(frame).ok:
+                            fail(f"[{tag}] {path}: a traced frame lost "
+                                 "track")
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3 / (hi - lo)
+                size = sum(os.path.getsize(os.path.join(tmp, f))
+                           for f in os.listdir(tmp))
+                t0 = time.perf_counter()
+                out = profiling.trace_attribution(tmp, hi - lo)
+                parse_s = time.perf_counter() - t0
         if not out["on_device"] or out["total_ms"] <= 0:
             fail(f"[{tag}] {path}: the trace holds no device event")
         if out["total_ms"] > wall:
@@ -2917,13 +3284,14 @@ def phase_trace(scene, lines):
                  f"the traced frames' wall {wall:.1f} ms")
         if abs(sum(out["stages"].values()) - out["total_ms"]) > 0.05:
             fail(f"[{tag}] {path}: the stages do not sum to total_ms")
-        _need_scopes(tag, path, out["scopes"], fits)
+        _need_scopes(tag, path, out["scopes"], fits, bool(graphed))
         clock = lines[path]["scopes"]
         share = {k: round(v["ms"] / clock[k]["elapsed_ms"], 4)
                  for k, v in out["scopes"].items()
                  if clock.get(k, {}).get("elapsed_ms", 0) > 0}
         print(f"[{tag}] " + json.dumps(dict(
-            path=path, frames=hi - lo, traced_wall_ms=round(wall, 3),
+            path=path, lm_steps="graphed" if graphed else "eager",
+            frames=hi - lo, traced_wall_ms=round(wall, 3),
             busy_ms=out["total_ms"], launches=out["launches"],
             busy_share_of_traced_wall=round(out["total_ms"] / wall, 4),
             stages_busy_ms=out["stages"], scopes=out["scopes"],
@@ -2945,6 +3313,7 @@ def main():
     scene = Scene(dev)
     paths = {"slice": phase_slice(scene)}
     paths["batch"] = phase_batch(scene)
+    paths["graph"] = phase_graph(scene)
     phase_render(scene)
     paths["probe"] = phase_probe(scene)
     paths["accuracy"] = phase_accuracy(scene)

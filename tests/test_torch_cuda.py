@@ -816,3 +816,111 @@ def test_track_batch_on_card_equals_frame_chain(cuda, deterministic):
             diag.n_points, tracker._fit_info(diag))
     assert all(r.ok for r in results)
     assert torch.equal(tracker.com_pre, com)
+
+
+def _card_fit_inputs(cuda, n_rows):
+    """A detail-2 model's fit context on the card (6 parts), a start near a
+    random pose and 700 noisy samples of it (the last 60 wildcards) in
+    ``n_rows`` rows, numpy-seeded."""
+    from avatar_tpu_torch.core import rotation
+    from avatar_tpu_torch.optim import gauss_newton as gn
+    from avatar_tpu_torch.testing import synthetic_model
+
+    model = synthetic_model(detail=2, device=cuda)
+    part = torch.as_tensor((model.main_joint % 6).astype(np.int32),
+                           device=cuda)
+    pp = model.pose_prior
+    ctx = gn.FitContext(
+        lbs=model.params, anc_mask=torch.as_tensor(
+            model.ancestor_mask, dtype=torch.float32, device=cuda),
+        faces=torch.as_tensor(model.faces, dtype=torch.int32, device=cuda),
+        model_part=part, prior=gn.PriorData(pp.means, pp.prec_cho,
+                                            pp.consts_log))
+    rng = np.random.default_rng(31)
+    J, K = model.num_joints(), model.num_shape_keys()
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+    gt = gn.Theta(p=f32([0.05, -0.02, 2.6]), rots=rotation.so3_exp(
+        f32(rng.normal(0, 0.25, (J, 3)))), w=f32(rng.normal(0, 0.3, K)))
+    x = gn._forward(ctx, model.parents, gt, True)[0].cpu().numpy()
+    pick = rng.choice(x.shape[0], 700, replace=False)
+    pts = np.zeros((n_rows, 3), np.float32)
+    pts[:700] = x[pick] + rng.normal(0, 0.003, (700, 3))
+    parts = np.full(n_rows, -1, np.int32)
+    parts[:700] = part.cpu().numpy()[pick]
+    parts[640:700] = 6
+    theta0 = gn.Theta(p=gt.p + f32([0.03, 0.02, -0.02]), rots=torch.einsum(
+        "jab,jbc->jac", rotation.so3_exp(f32(rng.normal(0, 0.05, (J, 3)))),
+        gt.rots), w=torch.zeros(K, device=cuda))
+    return model, ctx, f32(pts), torch.as_tensor(parts, device=cuda), theta0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fit_planned", "fit_unplanned", "refine"])
+def test_graphed_fit_equals_eager_fit(cuda, deterministic, case):
+    """A fit whose LM steps replay captured CUDA graphs equals the same fit
+    run uncaptured (``eager_steps``) to the bit: theta, cost, matches,
+    accepted steps, last correspondences and part counts; a second graphed
+    fit with other prior weights reuses the program and equals its eager
+    fit too; every replay counts the searches it launched."""
+    from avatar_tpu_torch.optim import gauss_newton as gn
+    from avatar_tpu_torch.optim.surface import vertex_face_rings
+
+    model, ctx, pts, parts, theta0 = _card_fit_inputs(
+        cuda, 1000 if case == "fit_unplanned" else 1024)
+    ring = torch.as_tensor(vertex_face_rings(model.faces,
+                                             model.num_points()), device=cuda)
+    name = "nn_argmin" if case == "fit_unplanned" else "nn_argmin_ranges"
+
+    def run(bp):
+        if case == "refine":
+            return gn.fit_refine(ctx, model.parents, ring, pts, parts, theta0,
+                                 bp, bp, n_steps=12, num_parts=6, wild=6,
+                                 wild_gate2=torch.tensor(0.04, device=cuda),
+                                 freeze_shape=True, programs=programs)
+        return gn.fit(ctx, model.parents, pts, parts, theta0, bp, 0.12,
+                      n_steps=20, num_parts=6, robust_per_part=True,
+                      freeze_shape=True, beta_temp=0.3, clamp_angle=0.25,
+                      wild_gate=0.2, wild_weight=0.7, programs=programs)
+
+    programs = {}
+    for first, bp in ((True, 0.03), (False, 0.3)):
+        before = nn_kernel.LAUNCHES[name]
+        with gn.eager_steps():
+            eager = run(bp)
+        torch.cuda.synchronize()
+        n_eager = nn_kernel.LAUNCHES[name] - before
+        graphed = run(bp)                    # the first captures
+        graphed = run(bp)
+        torch.cuda.synchronize()
+        n_graphed = nn_kernel.LAUNCHES[name] - before - n_eager
+        (prog,) = programs.values()
+        assert prog.graphs is not None
+        for a, b in zip((*eager[0], *eager[1]), (*graphed[0], *graphed[1])):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        # two graphed fits of the eager one's steps, and the capture's one
+        # uncaptured run of each step function before the first
+        assert n_eager > 0 and n_graphed == 2 * n_eager + first
+
+
+@pytest.mark.cuda
+def test_eager_lm_step_does_not_synchronise(cuda):
+    """Both step functions of a fit's program run under
+    ``set_sync_debug_mode("error")``: no synchronising copy or read."""
+    from avatar_tpu_torch.optim import gauss_newton as gn
+
+    model, ctx, pts, parts, theta0 = _card_fit_inputs(cuda, 1024)
+    programs = {}
+    with gn.eager_steps():
+        gn.fit(ctx, model.parents, pts, parts, theta0, 0.03, 0.12, n_steps=3,
+               num_parts=6, robust_per_part=True, freeze_shape=True,
+               programs=programs)
+    (prog,) = programs.values()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        prog.fns["lin"]()
+        prog.fns["step"]()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
