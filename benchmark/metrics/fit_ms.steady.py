@@ -1,0 +1,7 @@
+"""Stage-clock elapsed ms of the ``fit`` scope per steady frame."""
+
+from harness.readers import stage_ms
+
+
+def read(run):
+    return stage_ms(run, "steady", "fit")
