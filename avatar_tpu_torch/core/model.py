@@ -23,6 +23,7 @@ from avatar_tpu_torch.core import rotation
 from avatar_tpu_torch.core.lbs import LBSParams, lbs
 from avatar_tpu_torch.core.pose_prior import GaussianMixture
 from avatar_tpu_torch.device import get_device
+from avatar_tpu_torch.profiling import host_read, to_device
 from avatar_tpu_torch.utils import resolve_root_path
 
 
@@ -348,18 +349,18 @@ class Avatar:
         self.joint_rot_global: Optional[np.ndarray] = None
 
     def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=self.model.dtype,
-                               device=self.model.device)
+        return to_device(np.asarray(a), self.model.device, self.model.dtype)
 
     def update(self) -> None:
-        """LBS forward pass (reference Avatar.cpp:22-75)."""
+        """LBS forward pass (reference Avatar.cpp:22-75); its copies are
+        counted reads (``profiling``)."""
         m = self.model
         cloud, tg, Rg, _ = lbs(m.params, m.parents, self._tensor(self.w),
                                self._tensor(self.p), self._tensor(self.r),
                                use_jsr=m.use_joint_shape_regressor)
-        self.cloud = cloud.cpu().numpy()
-        self.joint_pos = tg.cpu().numpy()
-        self.joint_rot_global = Rg.cpu().numpy()
+        self.cloud = host_read(cloud)
+        self.joint_pos = host_read(tg)
+        self.joint_rot_global = host_read(Rg)
 
     def smpl_params(self) -> np.ndarray:
         """Axis-angle export of the non-root rotations (Avatar.cpp:128-137)."""

@@ -42,7 +42,9 @@ that fails on the card raises; it never falls back to the uncaptured
 steps.
 
 Differences from the reference, all of control flow and none of maths:
-  * the host reads the step's two flags once per step (above);
+  * the host reads the step's two flags once per step (above), a counted
+    read (``profiling.host_sync``); the fit counts its ``steps`` in the
+    scope open around it (``profiling.count``);
   * correspondences take the part-sorted planned NN
     (``correspond.matcher``) whenever N % 256 == 0, and the unplanned
     search of ``correspond.find_nn_stats`` otherwise, the reference's
@@ -63,7 +65,7 @@ import torch
 from avatar_tpu_torch.core import rotation
 from avatar_tpu_torch.core.lbs import LBSParams, fk, fk_indices, shape_fwd
 from avatar_tpu_torch.optim import correspond, nn_kernel
-from avatar_tpu_torch.profiling import scope, unclocked
+from avatar_tpu_torch.profiling import count, host_sync, scope, unclocked
 
 _SQRT_HALF = math.sqrt(0.5)
 
@@ -336,10 +338,10 @@ class _Program:
                 self.capture()
             with scope("step"):
                 self.graphs[name].replay()
-            nn_kernel.count_replay(self.launches[name])
+                nn_kernel.count_replay(self.launches[name])
         else:
             self.fns[name]()
-        with scope("sync"):
+        with scope("sync"), host_sync():
             accept, stop = self.b.flags.tolist()
         return accept, stop
 
@@ -513,6 +515,7 @@ def _run_loop(prog: _Program, n_steps: int, programs: Optional[dict],
     relinearize = True
     for _ in range(n_steps):
         relinearize, stop = prog.run(relinearize, graphed)
+        count("steps")
         if stop:
             break
 

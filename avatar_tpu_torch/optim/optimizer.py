@@ -6,7 +6,9 @@ count and joint->part map; ``optimize(data_cloud, data_part_labels,
 icp_iters)`` fits the avatar's (p, r, w) to a labelled point cloud on the
 model's device.  ``num_threads`` is accepted for API parity and ignored.
 Data clouds are padded to power-of-two buckets of at least 1024 rows, as
-the reference pads them, so the fit takes the planned NN path.
+the reference pads them, so the fit takes the planned NN path.  Every copy
+between host and device is a counted read (``profiling.host_read``,
+``to_device``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from avatar_tpu_torch.optim.gauss_newton import (FitContext, PriorData, Theta,
                                                  fit)
+from avatar_tpu_torch.profiling import host_read, to_device
 
 
 def _bucket(n: int, lo: int = 1024) -> int:
@@ -126,12 +129,11 @@ class AvatarOptimizer:
         if self.nn_step and self.nn_step > 1:
             n_model = ctx.lbs.weights.shape[0]
             mask = (np.arange(n_model) % int(self.nn_step)) == 0
-            ctx = ctx._replace(cand_mask=torch.as_tensor(mask,
-                                                         device=self.device))
+            ctx = ctx._replace(cand_mask=to_device(mask, self.device))
 
         ava = self.ava
-        t = lambda a, dtype=self._dtype: torch.as_tensor(
-            np.asarray(a), dtype=dtype, device=self.device)
+        t = lambda a, dtype=self._dtype: to_device(np.asarray(a),
+                                                   self.device, dtype)
         theta0 = Theta(p=t(ava.p), rots=t(ava.r), w=t(ava.w))
         # the reference's budget of icp_iters NN updates x maxItersPerICP
         # solver iterations; the fit re-matches every LM step
@@ -146,10 +148,11 @@ class AvatarOptimizer:
             num_parts=int(self.num_parts), huber_k=float(self.huber_k),
             robust_per_part=bool(self.robust_per_part),
             programs=self._programs)
-        ava.p = theta.p.cpu().numpy().astype(np.float64)
-        ava.r = theta.rots.cpu().numpy().astype(np.float64)
-        ava.w = theta.w.cpu().numpy().astype(np.float64)
+        ava.p = host_read(theta.p).astype(np.float64)
+        ava.r = host_read(theta.rots).astype(np.float64)
+        ava.w = host_read(theta.w).astype(np.float64)
         ava.update()
-        return dict(cost=float(diag.cost), n_matched=int(diag.n_matched),
-                    inner_iters=int(diag.inner_iters),
-                    part_counts=diag.part_counts.cpu().numpy().tolist())
+        return dict(cost=float(host_read(diag.cost)),
+                    n_matched=int(host_read(diag.n_matched)),
+                    inner_iters=int(host_read(diag.inner_iters)),
+                    part_counts=host_read(diag.part_counts).tolist())

@@ -8,6 +8,8 @@ gated by 3D neighbour distance <= neighb_thresh; components smaller than
 max(H*W/1000, 100) pixels are erased (BGSubtractor.cpp:82-126).  The mask
 holds component ids 0..253 in first-pixel scan order, 255 = background.
 Thresholds scale as 1200000 / (H*W) * rel (BGSubtractor.cpp:160-162).
+The frame and the background go to the device in scope ``upload``; every
+copy between host and device is a counted read (``profiling``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from avatar_tpu_torch.device import get_device
 from avatar_tpu_torch.perception import cc
+from avatar_tpu_torch.profiling import host_read, scope, to_device
 
 
 def _foreground_mask(background: torch.Tensor, image: torch.Tensor,
@@ -113,15 +116,15 @@ class BGSubtractor:
         H, W = image_s.shape[:2]
         # the thresholds scale with the full-resolution size
         scale = 1200000.0 / (Hf * Wf)
-        t = lambda a: torch.as_tensor(np.asarray(a, np.float32),
-                                      device=self.device)
-        img = t(image_s)
-        fg = _foreground_mask(t(bg_s), img,
-                              t(scale * self.nn_dist_thresh_rel))
+        t = lambda a: to_device(np.asarray(a, np.float32), self.device)
+        with scope("upload"):
+            img = t(image_s)
+            bg = t(bg_s)
+        fg = _foreground_mask(bg, img, t(scale * self.nn_dist_thresh_rel))
         labels, sizes = _components(img, fg,
                                     t(scale * self.neighb_thresh_rel))
-        labels = labels.cpu().numpy()
-        sizes = sizes.cpu().numpy()
+        labels = host_read(labels)
+        sizes = host_read(sizes)
         min_pts = max(Hf * Wf // 1000, 100) // (st * st)
 
         roots = np.nonzero(sizes >= min_pts)[0][:254]   # scan order

@@ -5,7 +5,8 @@ Pixels propagate the minimum flat index of their component across gated
 4-neighbour edges, with one pointer-jumping pass (label <- label[label])
 per sweep.  A component's id is the flat index of its first pixel in
 row-major scan order.  The loop reads its ``changed`` flag from the device
-once per sweep.
+once per sweep, and ``component_sizes``'s ``bincount`` reads its input's
+least and largest value: counted reads (``profiling.host_sync``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Callable, Optional
 
 import torch
 
-from avatar_tpu_torch.profiling import scope
+from avatar_tpu_torch.profiling import host_sync, scope
 
 _GATES = ((1, 0), (-1, 0), (0, 1), (0, -1))
 
@@ -58,7 +59,7 @@ def connected_components(active: torch.Tensor,
         gate_masks.append(ok)
 
     pad = torch.full((H * W + 1,), big, dtype=torch.int32, device=dev)
-    with scope("sync"):
+    with scope("sync"), host_sync():
         changed = bool(active.any())
     it = 0
     while changed and it < max_iters:
@@ -70,7 +71,7 @@ def connected_components(active: torch.Tensor,
         pad[:-1] = newf
         newf = torch.minimum(newf, pad[torch.clamp(newf, max=big).long()])
         new = newf.reshape(H, W)
-        with scope("sync"):
+        with scope("sync"), host_sync():
             changed = bool((new != label).any())
         label = new
         it += 1
@@ -82,7 +83,9 @@ def component_sizes(labels: torch.Tensor) -> torch.Tensor:
     H, W = labels.shape
     flat = labels.reshape(-1)
     idx = torch.where(flat >= 0, flat, H * W).long()
-    return torch.bincount(idx, minlength=H * W + 1)[:-1].to(torch.int32)
+    with host_sync(2):
+        sizes = torch.bincount(idx, minlength=H * W + 1)
+    return sizes[:-1].to(torch.int32)
 
 
 def component_centroids(labels: torch.Tensor):

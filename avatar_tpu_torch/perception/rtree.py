@@ -9,7 +9,8 @@ number of steps (leaves self-loop).  Node fields are gathered one by one
 instead of through the reference's bit-cast row packing; the leaf ids are
 the same either way.  ``torch.round`` and ``jnp.round`` both round half to
 even, and the ``u / z`` division is kept where it is, so leaf ids match the
-reference bit for bit.
+reference bit for bit.  The ``RTree`` API's copies between host and device
+are counted reads (``profiling.host_read``, ``to_device``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from avatar_tpu_torch.device import get_device
 from avatar_tpu_torch.io import formats
 from avatar_tpu_torch.perception import cc
+from avatar_tpu_torch.profiling import host_read, to_device
 
 BACKGROUND_DEPTH = 20.0  # meters (reference RTree.cpp:325)
 
@@ -148,8 +150,8 @@ def remove_small_pieces(strided: torch.Tensor, num_parts: int,
         interval * interval) * thresh
     flat_lab = labels.reshape(-1)
     sz_of_pix = sizes[torch.clamp(flat_lab, min=0).long()]
-    keep = (flat_lab >= 0) & (sz_of_pix.to(torch.float32) >= scaled.to(
-        strided.device))
+    labelled, szf = flat_lab >= 0, sz_of_pix.to(torch.float32)
+    keep = labelled & (szf >= to_device(scaled, strided.device))
     return torch.where(keep, strided.reshape(-1),
                        torch.full_like(strided.reshape(-1), 255)).reshape(
         strided.shape)
@@ -315,8 +317,7 @@ class RTree:
                 (int(bot_right[0]), int(bot_right[1])))
 
     def _depth(self, depth) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(depth, np.float32),
-                               device=self.device)
+        return to_device(np.asarray(depth, np.float32), self.device)
 
     def predict_best(self, depth, num_threads: int = 0, interval: int = 1,
                      top_left=None, bot_right=None,
@@ -332,7 +333,7 @@ class RTree:
         out = _strided_to_full(best, depth.shape, interval)
         if fill_in_gaps and interval > 1:
             out = upscale_grid(out, interval, tl, br)
-        return out.cpu().numpy()
+        return host_read(out)
 
     predictBest = predict_best
 
@@ -358,7 +359,7 @@ class RTree:
                                    device=dist.device)
                 full[::interval, ::interval] = dist
                 dist = full
-        return dist.cpu().numpy()
+        return host_read(dist)
 
     def post_process(self, image: np.ndarray, com_pre: np.ndarray,
                      interval: int = 1, num_threads: int = 0,
@@ -381,22 +382,21 @@ class RTree:
         inroi = ((xs[None, :] >= tl[0]) & (xs[None, :] <= br[0]) &
                  (ys[:, None] >= tl[1]) & (ys[:, None] <= br[1]))
         strided[~inroi] = 255
-        st = torch.as_tensor(strided, device=self.device)
+        st = to_device(strided, self.device)
         if self.partmap_type == formats.PARTMAP_CONTIGUOUS:
             filtered, new_com = suppress_part_nonmax(
-                st, torch.as_tensor(com_pre, dtype=torch.float32,
-                                    device=self.device),
+                st, to_device(com_pre, self.device, torch.float32),
                 self.num_parts, interval, dist_to_pre_weight, (0, 0))
-            com_pre[:] = new_com.cpu().numpy()
+            com_pre[:] = host_read(new_com)
         else:
             filtered = remove_small_pieces(st, self.num_parts, interval,
                                            (H, W))
         out = np.asarray(image).copy()
         out[::interval, ::interval] = np.where(
-            inroi, filtered.cpu().numpy(), out[::interval, ::interval])
+            inroi, host_read(filtered), out[::interval, ::interval])
         if interval > 1:
-            out = upscale_grid(torch.as_tensor(out, device=self.device),
-                               interval, tl, br).cpu().numpy()
+            out = host_read(upscale_grid(to_device(out, self.device),
+                                         interval, tl, br))
         return out
 
     postProcess = post_process

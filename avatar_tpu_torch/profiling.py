@@ -8,7 +8,8 @@ helpers say where a frame's time goes on the device, in two ways:
 
     with stage_clock(device) as clock:        # elapsed time per scope
         tracker.track(frame)
-    clock.stages["fit/nn"]                    # elapsed_ms, host_ms, entries
+    clock.stages["fit/nn"]                    # elapsed_ms, host_ms, entries,
+                                              # counts
 
     with device_trace(log_dir, device):       # torch.profiler, Chrome trace
         for frame in frames:
@@ -17,7 +18,9 @@ helpers say where a frame's time goes on the device, in two ways:
 
 The tracker's stages and the parts of an LM step are marked with
 ``scope(name)`` (``tracking_fused._fused_frame_impl``, ``tracking.Tracker``,
-``optim/gauss_newton``).  On the card an LM step is the replay of a captured
+``optim/gauss_newton``), below one ``frame`` root per ``track`` call that
+holds the whole call: the upload, the stages, the diagnostics read and the
+state update.  On the card an LM step is the replay of a captured
 CUDA graph, marked as one scope, ``step``, beside the host read ``sync``;
 the parts of a step show only in a run with ``gauss_newton.eager_steps()``,
 and a scope opened while a graph is being captured records no event.  A
@@ -27,6 +30,26 @@ reads back.  Only while a ``stage_clock`` is active on the calling thread
 does it also record an event at entry and exit (a CUDA event on the
 current stream, the host clock on the CPU).  With no clock active a scope
 records no event, reads nothing back and synchronises nothing.
+
+*Counts.*  ``count(name, k)`` adds ``k`` to the innermost scope open under
+this thread's stage clock; with no clock active it returns after one
+thread-local lookup.  A scope's counts are its own, not its children's;
+what is counted under a clock with no scope open goes to one top-level
+entry, ``UNSCOPED``, so a block's totals are complete.  The counters:
+
+    reads     the host's waits on the card: every synchronising copy or
+              read on a tracked frame's path goes through ``host_read``,
+              ``to_device`` (a copy from pageable host memory waits for
+              the stream as a read does) or, for an operation that reads
+              back on its own (``bincount``, ``nonzero``), ``host_sync``
+    read_ms   the host's blocked time in those reads (host clock)
+    steps     LM steps run by a fit (``optim/gauss_newton``)
+
+While a profiler records, a read also enters ``record_function(READ_SPAN)``,
+so it sits on the profiler's timeline beside the kernels; it opens no
+scope.
+``counted_syncs_only()`` makes every other synchronisation raise (the card
+test that every sync of a frame is counted).
 
 *Elapsed is not busy.*  The clock's ``elapsed_ms`` is the device timeline
 between a scope's two events, idle gaps included: a stage that waits on
@@ -53,10 +76,22 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
+try:    # private, and the cheapest check; if it moves, reads still trace
+    from torch._C._autograd import _profiler_enabled
+except ImportError:
+    from torch.autograd import profiler as _autograd_profiler
+
+    def _profiler_enabled() -> bool:
+        return getattr(_autograd_profiler, "_is_profiler_enabled", True)
+
 from avatar_tpu_torch.device import get_device
 
 # the root scope of one tracked frame; reported paths are relative to it
 FRAME_SCOPE = "frame"
+# the stage clock's entry for counts made with no scope open
+UNSCOPED = "(unscoped)"
+# the profiler's name for a counted read
+READ_SPAN = "host_read"
 # trace_attribution's stage of each scope name (the reference's buckets)
 _STAGE_OF = {"fit": "fit", "refine": "fit", "forest_walk": "walk",
              "blob_suppress": "blob_cc", "bgsub": "bgsub"}
@@ -64,6 +99,7 @@ STAGES = ("bgsub", "walk", "blob_cc", "fit", "frame_glue", "other")
 
 _active = threading.local()
 _event_pool: List = []
+_strict = False     # counted_syncs_only() is active
 
 
 def _new_event():
@@ -79,15 +115,18 @@ class StageClock:
     """What ``stage_clock`` yields.  After the block, ``stages`` maps each
     scope path (``"fit/nn"``; paths below the ``frame`` root leave it out)
     to ``elapsed_ms`` (device timeline on the card, host clock on the CPU),
-    ``host_ms`` (host clock, always), ``entries`` and ``depth`` (1 for a
-    scope directly below the frame root)."""
+    ``host_ms`` (host clock, always), ``entries``, ``depth`` (1 for a
+    scope directly below the frame root) and ``counts`` ({name: total} of
+    ``count`` calls made directly in the scope); counts made with no scope
+    open are under ``UNSCOPED``."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.on_card = device.type == "cuda"
         self.stages: Dict[str, dict] = {}
-        self._stack: List[str] = []
+        self._open: List[list] = []      # the open scopes' records
         self._records: List[list] = []
+        self._unscoped: Dict[str, float] = {}
 
     def _mark(self):
         if not self.on_card:
@@ -97,20 +136,31 @@ class StageClock:
         return ev
 
     def _enter(self, name: str) -> list:
-        self._stack.append(name)
-        return [list(self._stack), self._mark(), None, time.perf_counter(),
-                0.0]
+        path = (self._open[-1][0] if self._open else []) + [name]
+        rec = [path, self._mark(), None, time.perf_counter(), 0.0, None]
+        self._open.append(rec)
+        return rec
 
     def _exit(self, rec: list) -> None:
         rec[2] = self._mark()
         rec[4] = time.perf_counter()
-        self._stack.pop()
+        self._open.pop()
         self._records.append(rec)
+
+    def _count(self, name: str, k) -> None:
+        if self._open:
+            rec = self._open[-1]
+            counts = rec[5]
+            if counts is None:
+                counts = rec[5] = {}
+        else:
+            counts = self._unscoped
+        counts[name] = counts.get(name, 0) + k
 
     def _finish(self) -> None:
         """One synchronise, then every event pair is read and pooled."""
         _synchronize(self.device)
-        for path, start, end, t0, t1 in self._records:
+        for path, start, end, t0, t1, counts in self._records:
             host_ms = (t1 - t0) * 1e3
             if self.on_card:
                 elapsed = start.elapsed_time(end)
@@ -120,11 +170,18 @@ class StageClock:
             root = path.index(FRAME_SCOPE) if FRAME_SCOPE in path else -1
             st = self.stages.setdefault(_rel(path), dict(
                 elapsed_ms=0.0, host_ms=0.0, entries=0,
-                depth=len(path) - 1 - root))
+                depth=len(path) - 1 - root, counts={}))
             st["elapsed_ms"] += elapsed
             st["host_ms"] += host_ms
             st["entries"] += 1
+            for name, k in (counts or {}).items():
+                st["counts"][name] = st["counts"].get(name, 0) + k
+        if self._unscoped:
+            self.stages[UNSCOPED] = dict(elapsed_ms=0.0, host_ms=0.0,
+                                         entries=0, depth=0,
+                                         counts=dict(self._unscoped))
         self._records = []
+        self._unscoped = {}
 
 
 def _capturing() -> bool:
@@ -158,11 +215,84 @@ class scope:
         return False
 
 
-def current_scope() -> str:
-    """The path of the innermost scope open under this thread's stage
-    clock, "" outside every scope or with no clock active."""
+def count(name: str, k=1) -> None:
+    """Add ``k`` to counter ``name`` of the innermost scope open under this
+    thread's stage clock (of ``UNSCOPED`` with none open); nothing with no
+    clock active."""
     clock = getattr(_active, "clock", None)
-    return _rel(clock._stack) if clock is not None and clock._stack else ""
+    if clock is not None:
+        clock._count(name, k)
+
+
+class host_sync:
+    """Mark a block that synchronises the card once (``n`` times where one
+    operation waits more than once): ``with host_sync(): changed =
+    bool(mask.any())``.  Under a stage clock the enclosing scope counts
+    ``n`` ``reads`` and the host's blocked time as ``read_ms``; while a
+    profiler records, the block enters ``record_function(READ_SPAN)``
+    (with neither, a read costs a few microseconds).  Opens no scope."""
+
+    __slots__ = ("n", "_fn", "_clock", "_t0", "_mode")
+
+    def __init__(self, n: int = 1):
+        self.n = n
+
+    def __enter__(self):
+        self._fn = None
+        if _profiler_enabled():
+            self._fn = torch.profiler.record_function(READ_SPAN)
+            self._fn.__enter__()
+        self._mode = None
+        if _strict:
+            self._mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+        self._clock = getattr(_active, "clock", None)
+        if self._clock is not None:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self._clock is not None:
+            ms = (time.perf_counter() - self._t0) * 1e3
+            self._clock._count("reads", self.n)
+            self._clock._count("read_ms", ms)
+        if self._mode is not None:
+            torch.cuda.set_sync_debug_mode(self._mode)
+        if self._fn is not None:
+            self._fn.__exit__(*exc)
+        return False
+
+
+def host_read(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host as numpy, one counted read (``host_sync``)."""
+    with host_sync():
+        return t.cpu().numpy()
+
+
+def to_device(a, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(a, dtype=dtype, device=device)`` for host data
+    ``a``, one counted read (``host_sync``): a copy from pageable host
+    memory waits for the device's stream as a read does."""
+    with host_sync():
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+@contextlib.contextmanager
+def counted_syncs_only():
+    """For the block, every synchronisation of the card raises except
+    inside ``host_sync`` (``host_read``, ``to_device``), which lifts the
+    mode around its own (``torch.cuda.set_sync_debug_mode("error")``; process-wide,
+    as that mode is).  Card only."""
+    global _strict
+    if _strict:
+        raise RuntimeError("counted_syncs_only() is already active")
+    torch.cuda.set_sync_debug_mode("error")
+    _strict = True
+    try:
+        yield
+    finally:
+        _strict = False
+        torch.cuda.set_sync_debug_mode("default")
 
 
 @contextlib.contextmanager

@@ -8,8 +8,10 @@
 filtering with centre-of-mass tracking) -> stride-sampled labelled cloud
 -> the reinit state machine -> ``AvatarOptimizer.optimize`` -> optional
 Lambert overlay.  Each stage runs on the model's device and hands numpy
-to the next, as the reference's host path does; the per-frame fused
-tracker is ``tracking_fused.FusedTracker``.
+to the next, as the reference's host path does, through counted reads
+(``profiling.host_read``, ``to_device``); the XYZ map goes to the card in
+``bgsub/upload``.  The per-frame fused tracker is
+``tracking_fused.FusedTracker``.
 
 ``TrackerConfig`` is field for field the reference's, with the same
 defaults; the rationale and measurements behind each default live there,

@@ -14,11 +14,12 @@ run as the reference's compiled loop does, each step a replayed CUDA graph
 on the card (``optim/gauss_newton``), and the rest of the frame runs
 eagerly: the tracked window's origin, each connected-components sweep and
 each LM step read a flag from the device, and the host reads one packed
-diagnostics vector per frame.  The tracker keeps its fits' programs and
-graphs (``_programs``), so they go with it; its fit contexts are built
-once and never replaced (a shape refit changes theta, not the context),
-so no fit rebuilds a program.  The reinit / loss state machine stays on
-the host as in the reference.
+diagnostics vector per frame.  Every synchronising copy or read of a
+frame is a counted read (``profiling.host_read``, ``to_device``).  The
+tracker keeps its fits' programs and graphs (``_programs``), so they go
+with it; its fit contexts are built once and never replaced (a shape
+refit changes theta, not the context), so no fit rebuilds a program.
+The reinit / loss state machine stays on the host as in the reference.
 
 On refine frames (``TrackerConfig.refine_every``) the same data bucket is
 re-fitted against the mesh surface (``optim/gauss_newton.fit_refine``,
@@ -29,7 +30,10 @@ orders ties toward the lower index exactly as ``lax.top_k`` does (the hash
 noise has only 65536 levels, so ties occur).  The stages carry the
 reference's scope names (``profiling.scope``: ``bgsub``, ``forest_walk``,
 ``blob_suppress``, ``fit``, ``refine``; the rest of a frame under
-``glue/...``), below one ``frame`` root per pass through the pipeline.
+``glue/...``), below one ``frame`` root per ``track`` call, which holds the
+upload (``upload``), every pass through the pipeline (a reinit runs one
+per seed), the diagnostics read (``diag_read``) and the state update; a
+batch has one root per frame.
 
 The batch and async modes keep the reference's results and lags:
 ``fused_frames_batch`` runs a batch as a loop over the frame (the
@@ -63,7 +67,8 @@ from avatar_tpu_torch.perception.partgroups import (SMPL24_GROUP_CHAIN_ROOT,
 from avatar_tpu_torch.perception.rtree import (TreeTensors,
                                                suppress_part_nonmax,
                                                walk_pixels)
-from avatar_tpu_torch.profiling import FRAME_SCOPE, scope
+from avatar_tpu_torch.profiling import (FRAME_SCOPE, host_read, host_sync,
+                                        scope, to_device)
 from avatar_tpu_torch.render.raster import project_points
 from avatar_tpu_torch.tracking import TrackerConfig, TrackResult
 from avatar_tpu_torch.utils import StageTimer
@@ -101,7 +106,7 @@ def unpack_diag(vec, num_parts: int) -> HostDiag:
     a = vec
     if isinstance(vec, torch.Tensor):
         with scope("diag_read"):
-            a = vec.cpu().numpy()
+            a = host_read(vec)
     G = num_parts
     return HostDiag(
         n_points=int(a[0]), cost=float(a[1]), n_matched=int(a[2]),
@@ -212,7 +217,8 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
     # against the previous fitted pose (theta_in)
     theta_in = theta0
     if theta_prev is not None:
-        theta0 = extrapolate(theta0, theta_prev, extrap)
+        with scope("glue/extrapolate"):
+            theta0 = extrapolate(theta0, theta_prev, extrap)
 
     def strided_xyz(d_full):
         d_s = d_full[::seg_stride, ::seg_stride]
@@ -245,9 +251,10 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
     hard_overflow = torch.zeros((), dtype=torch.float32, device=dev)
     if use_forest:
         multi = tree.u.dim() == 3          # stacked [T, ...] bagged forest
-        tree_scaled = tree._replace(u=tree.u / seg_stride,
-                                    v=tree.v / seg_stride)
-        bg_lab = torch.tensor(_BG, dtype=torch.uint8, device=dev)
+        with scope("glue/walk_setup"):
+            tree_scaled = tree._replace(u=tree.u / seg_stride,
+                                        v=tree.v / seg_stride)
+            bg_lab = to_device(_BG, dev, torch.uint8)
 
         def walk_set(pys, pxs, pz, pfg, pflat, pshape, ptl, pbr):
             """Conf-gated best label over a pixel set, and the selective
@@ -337,7 +344,7 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
                 ccy = torch.where(any_com, ccy / seg_stride, Hs / 2.0)
                 oy = torch.clamp(ccy.to(torch.int32) - wh // 2, 0, Hs - wh)
                 ox = torch.clamp(ccx.to(torch.int32) - ww // 2, 0, Ws - ww)
-                with scope("sync"):
+                with scope("sync"), host_sync():
                     oy, ox = torch.stack([oy, ox]).tolist()
                 region = depth_s[oy:oy + wh, ox:ox + ww]
                 roy, rox, rw = oy, ox, ww
@@ -790,10 +797,9 @@ class FusedTracker:
         self._run_consts = None
 
     def _com0(self) -> torch.Tensor:
-        return torch.as_tensor(np.concatenate(
+        return to_device(np.concatenate(
             [np.full((1, self.num_parts), -1.0),
-             np.zeros((1, self.num_parts))]), dtype=self.model.dtype,
-            device=self.device)
+             np.zeros((1, self.num_parts))]), self.device, self.model.dtype)
 
     def _fit_bucket(self, n_data: int) -> Tuple[int, int, int]:
         """(pad_n, boost_n, wild_n) for a fit over ``n_data`` grid samples:
@@ -839,8 +845,8 @@ class FusedTracker:
             hs = self._host_stride
             scale = 1200000.0 / (H * W)
             min_cc = max(H * W // 1000, 100) // (hs * hs * 16)
-            t = lambda v, dtype=self.model.dtype: torch.tensor(
-                v, dtype=dtype, device=self.device)
+            t = lambda v, dtype=self.model.dtype: to_device(v, self.device,
+                                                            dtype)
             consts = dict(
                 beta_pose=t(c.beta_pose), beta_shape=t(c.beta_shape),
                 nn_t=t(scale * c.nn_dist_thresh_rel),
@@ -860,20 +866,21 @@ class FusedTracker:
                 for g in c.label_conf_low_groups:
                     if 0 <= g < self.num_parts:
                         cv[g] = c.label_conf_low
-            consts["conf_vec"] = torch.as_tensor(cv, device=self.device)
+            consts["conf_vec"] = to_device(cv, self.device)
             self._run_consts = consts
         return self._run_consts
 
     def _run(self, xyz, labels, n_steps, use_window=True,
              render_labels=True, is_reinit=False, reinit_gated=False,
              refine=False, fit_shape=False) -> FrameOut:
+        """One pass through the pipeline (inside the caller's ``frame``
+        root)."""
         kw = self._frame_kwargs(n_steps, use_window, render_labels,
                                 is_reinit, reinit_gated, refine, fit_shape)
-        with scope(FRAME_SCOPE):
-            return _fused_frame_impl(
-                self._ctx, self._ctx_fit, self._tree, self.model.parents, xyz,
-                labels, self._bg, self._intrin4, self._theta, self.com_pre,
-                **kw)
+        return _fused_frame_impl(
+            self._ctx, self._ctx_fit, self._tree, self.model.parents, xyz,
+            labels, self._bg, self._intrin4, self._theta, self.com_pre,
+            **kw)
 
     def _frame_kwargs(self, n_steps, use_window=True, render_labels=True,
                       is_reinit=False, reinit_gated=False, refine=False,
@@ -988,28 +995,32 @@ class FusedTracker:
         if depth_np.dtype == np.uint16:
             # bit-cast to int16 for the upload; _fused_frame_impl widens
             # back to uint16 values after striding
-            return torch.from_numpy(np.ascontiguousarray(depth_np).view(
-                np.int16)).to(self.device)
-        return torch.as_tensor(np.ascontiguousarray(depth_np),
-                               dtype=self.model.dtype, device=self.device)
+            return to_device(np.ascontiguousarray(depth_np).view(np.int16),
+                             self.device)
+        return to_device(np.ascontiguousarray(depth_np), self.device,
+                         self.model.dtype)
 
     def _upload_labels(self, labels_override) -> torch.Tensor:
         if labels_override is None:
             return self._zero_labels
-        return torch.as_tensor(self._map_labels(self._pre_stride(
-            np.asarray(labels_override))), dtype=torch.uint8,
-            device=self.device)
+        return to_device(self._map_labels(self._pre_stride(
+            np.asarray(labels_override))), self.device, torch.uint8)
 
     def track(self, frame, labels_override: Optional[np.ndarray] = None
               ) -> TrackResult:
         """Track one frame: an XYZ map [H, W, 3], a float depth map [H, W]
         in meters, or a uint16 depth map in millimeters."""
+        with scope(FRAME_SCOPE):
+            return self._track(frame, labels_override)
+
+    def _track(self, frame, labels_override) -> TrackResult:
         c = self.config
-        frame = np.asarray(frame)
-        depth_np = frame[..., 2] if frame.ndim == 3 else frame
-        depth_np = self._pre_stride(depth_np)
-        xyz = self._upload(depth_np)
-        labels = self._upload_labels(labels_override)
+        with scope("upload"):
+            frame = np.asarray(frame)
+            depth_np = frame[..., 2] if frame.ndim == 3 else frame
+            depth_np = self._pre_stride(depth_np)
+            xyz = self._upload(depth_np)
+            labels = self._upload_labels(labels_override)
 
         min_needed = c.min_points / (c.data_interval ** 2)
         reinitialized = False
@@ -1073,20 +1084,22 @@ class FusedTracker:
                 self._shape_refit_in = None
             elif self._shape_refit_in is not None:
                 self._shape_refit_in -= 1
-        # velocity anchor: the previous fitted pose in steady state, the
-        # new pose itself right after a reinit
-        self._theta_prev = out.theta if reinitialized else self._theta
-        self._theta = out.theta
-        self.com_pre = out.com_pre
-        self._lost_frames = 0
-        mz = diag.model_com[:, 4]
-        if np.any(mz > 0):
-            self._last_root_z = float(np.mean(mz[mz > 0]))
-        if not reinitialized:
-            self._limb_recovery(diag, depth_np)
-        res = TrackResult(ok=True, reinitialized=reinitialized,
-                          n_points=n_points, fit_info=self._fit_info(diag))
-        self._log_metrics(res)
+        with scope("glue/update"):
+            # velocity anchor: the previous fitted pose in steady state, the
+            # new pose itself right after a reinit
+            self._theta_prev = out.theta if reinitialized else self._theta
+            self._theta = out.theta
+            self.com_pre = out.com_pre
+            self._lost_frames = 0
+            mz = diag.model_com[:, 4]
+            if np.any(mz > 0):
+                self._last_root_z = float(np.mean(mz[mz > 0]))
+            if not reinitialized:
+                self._limb_recovery(diag, depth_np)
+            res = TrackResult(ok=True, reinitialized=reinitialized,
+                              n_points=n_points,
+                              fit_info=self._fit_info(diag))
+            self._log_metrics(res)
         return res
 
     def _reinit(self, depth_np, labels, labels_override, xyz):
@@ -1127,8 +1140,8 @@ class FusedTracker:
         seeds = [rots]
         if c.reinit_seeds > 1 and self.model.pose_prior is not None:
             pp = self.model.pose_prior
-            wts = pp.weights.cpu().numpy()
-            means = pp.means.cpu().numpy()
+            wts = host_read(pp.weights)
+            means = host_read(pp.means)
             for ci in np.argsort(wts)[::-1][: c.reinit_seeds - 1]:
                 aa = means[ci].reshape(J - 1, 3)
                 R = rotation.so3_exp(torch.as_tensor(
@@ -1138,10 +1151,9 @@ class FusedTracker:
                  else c.reinit_icp_iters) * c.iters_per_icp
         dev, dt = self.device, self.model.dtype
         best = None
-        for sd in seeds:
+        for i, sd in enumerate(seeds):
             self._theta = Theta(
-                p=torch.as_tensor(centroid, dtype=dt, device=dev),
-                rots=torch.as_tensor(sd, dtype=dt, device=dev),
+                p=to_device(centroid, dev, dt), rots=to_device(sd, dev, dt),
                 w=torch.zeros(self.model.num_shape_keys(), dtype=dt,
                               device=dev))
             self.com_pre = self._com0()
@@ -1205,15 +1217,15 @@ class FusedTracker:
         for f in frames:
             f = np.asarray(f)
             deps.append(self._pre_stride(f[..., 2] if f.ndim == 3 else f))
-        dep_b = self._upload(np.stack(deps))
+        with scope("upload"):
+            dep_b = self._upload(np.stack(deps))
         if labels_override is None:
             lab_b = torch.zeros((len(frames),) + self._proc_size,
                                 dtype=torch.uint8, device=self.device)
         else:
-            lab_b = torch.as_tensor(np.stack([
+            lab_b = to_device(np.stack([
                 self._map_labels(self._pre_stride(np.asarray(lab)))
-                for lab in labels_override]), dtype=torch.uint8,
-                device=self.device)
+                for lab in labels_override]), self.device, torch.uint8)
         if self._shape_refit_in is not None:
             # every batch frame runs shape-frozen; an expiring countdown is
             # taken up by the next batch's head frame (track_batch)
@@ -1229,7 +1241,7 @@ class FusedTracker:
         limb recovery on the last frame.  Returns (results, thetas)."""
         c = self.config
         with scope("diag_read"):
-            dn = pending["diags"].cpu().numpy()
+            dn = host_read(pending["diags"])
         min_needed = c.min_points / (c.data_interval ** 2)
         results = []
         for row in dn:
@@ -1289,16 +1301,21 @@ class FusedTracker:
         recovery its diagnostics with this frame's depth.  While lost, the
         frames in flight are dropped and the frame goes through ``track``.
         ``flush`` reads the newest frame in flight."""
-        c = self.config
         if self.reinit:
             self._pending_q = []
             return self.track(frame, labels_override)
-        depth_np = np.asarray(frame)
-        if depth_np.ndim == 3:
-            depth_np = depth_np[..., 2]
-        depth_np = self._pre_stride(depth_np)
-        xyz = self._upload(depth_np)
-        labels = self._upload_labels(labels_override)
+        with scope(FRAME_SCOPE):
+            return self._track_async(frame, labels_override)
+
+    def _track_async(self, frame, labels_override) -> Optional[TrackResult]:
+        c = self.config
+        with scope("upload"):
+            depth_np = np.asarray(frame)
+            if depth_np.ndim == 3:
+                depth_np = depth_np[..., 2]
+            depth_np = self._pre_stride(depth_np)
+            xyz = self._upload(depth_np)
+            labels = self._upload_labels(labels_override)
         fit_shape = self._shape_refit_due()
         if fit_shape:
             self._shape_refit_in = None
@@ -1313,7 +1330,8 @@ class FusedTracker:
         if len(self._pending_q) < max(1, c.pipeline_depth) + 1:
             return None
         diag = unpack_diag(self._pending_q.pop(0).host_diag, self.num_parts)
-        self._limb_recovery(diag, depth_np)
+        with scope("glue/update"):
+            self._limb_recovery(diag, depth_np)
         if diag.n_points < c.min_points / (c.data_interval ** 2):
             self.reinit = True
             res = TrackResult(ok=False, n_points=diag.n_points)
@@ -1370,9 +1388,9 @@ class FusedTracker:
     def sync_avatar(self) -> Avatar:
         """Materialize the device-side pose into ``self.ava`` (host)."""
         th = self._theta
-        self.ava.p = th.p.cpu().numpy().astype(np.float64)
-        self.ava.r = th.rots.cpu().numpy().astype(np.float64)
-        self.ava.w = th.w.cpu().numpy().astype(np.float64)
+        self.ava.p = host_read(th.p).astype(np.float64)
+        self.ava.r = host_read(th.rots).astype(np.float64)
+        self.ava.w = host_read(th.w).astype(np.float64)
         self.ava.update()
         return self.ava
 
@@ -1383,7 +1401,7 @@ class FusedTracker:
         th = self._theta
         verts, joints, _, _ = lbs(m.params, m.parents, th.w, th.p, th.rots,
                                   use_jsr=m.use_joint_shape_regressor)
-        return verts.cpu().numpy(), joints.cpu().numpy()
+        return host_read(verts), host_read(joints)
 
     def _limb_recovery(self, diag: HostDiag, depth_np: np.ndarray) -> None:
         """Re-aim starved extremity chains at their forest blobs: after
@@ -1396,7 +1414,7 @@ class FusedTracker:
         pc = diag.part_counts
         com = diag.com_pre
         starve = self._starve
-        mp = self._ctx.model_part.cpu().numpy()
+        mp = host_read(self._ctx.model_part)
         parents = self.model.parents
         i = self.intrin
         hs = self._host_stride
@@ -1438,7 +1456,7 @@ class FusedTracker:
                 continue
             if rots is None:
                 verts, joints = self.pose()
-                rots = self._theta.rots.cpu().numpy().astype(np.float64)
+                rots = host_read(self._theta.rots).astype(np.float64)
                 J = len(parents)
                 Rg = np.zeros((J, 3, 3))
                 Rg[0] = rots[0]
@@ -1477,8 +1495,7 @@ class FusedTracker:
         if changed:
             self._theta = Theta(
                 p=self._theta.p,
-                rots=torch.as_tensor(rots, dtype=self.model.dtype,
-                                     device=self.device),
+                rots=to_device(rots, self.device, self.model.dtype),
                 w=self._theta.w)
             # the re-aim is a host-side jump, not motion: zero the velocity
             self._theta_prev = self._theta

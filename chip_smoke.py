@@ -188,9 +188,13 @@ each (any failure exits non-zero and prints no result):
    host-tracker frames as medians over the 5 steady frames): per scope the
    clock's elapsed ms on the device timeline (idle gaps included), the
    host's wall ms, the entries and the synchronising copies and reads
-   PyTorch reports there (``torch.cuda.set_sync_debug_mode``; explicit
-   ``synchronize`` calls apart); the frames' wall ms with its spread.
-   Fails unless: the clocked frames equal an unclocked tracker's to the
+   counted there (the clock's ``reads``: ``profiling.host_read`` /
+   ``host_sync``); the frames' wall ms with its spread.  Each path's
+   tracker then runs a reinit and a steady frame again in a pass of its
+   own with PyTorch's sync reports on (``set_sync_debug_mode("warn")``).
+   Fails unless: each of those frames' ``reads`` equal the
+   synchronisations PyTorch reports for it; the clocked frames equal an
+   unclocked tracker's to the
    bit (theta, labels, diag); the warmed tracker's frames equal a cold
    one's and its state after ``warmup``, and after ``warmup(batch=2)``,
    equals its state before; the metrics log has one line per tracked
@@ -2770,47 +2774,7 @@ FRAME_SCOPES = ("bgsub", "forest_walk", "blob_suppress", "fit")
 LM_SCOPES = ("lbs", "vis", "nn", "weights", "jacobian", "gram", "solve",
              "trial", "sync")
 GRAPHED_LM_SCOPES = ("lbs", "step", "sync")     # a replay is one scope
-COUNTED = 3     # frames of each path whose synchronising reads are counted
-
-
-@contextlib.contextmanager
-def _counting_syncs(counts: dict):
-    """Count the block's synchronising host reads, as PyTorch reports them
-    (``torch.cuda.set_sync_debug_mode("warn")``), under the stage clock's
-    open scope; explicit ``torch.cuda.synchronize`` calls are counted
-    apart, under "synchronize()"."""
-    import warnings
-
-    import torch
-
-    from avatar_tpu_torch import profiling
-
-    real_sync = torch.cuda.synchronize
-
-    def counted_sync(*a, **kw):
-        counts["synchronize()"] = counts.get("synchronize()", 0) + 1
-        return real_sync(*a, **kw)
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        show = warnings.showwarning
-
-        def note(message, category, filename, lineno, file=None, line=None):
-            if "synchronizing" not in str(message):
-                return show(message, category, filename, lineno, file, line)
-            key = profiling.current_scope()
-            counts[key] = counts.get(key, 0) + 1
-
-        warnings.showwarning = note
-        torch.cuda.synchronize = counted_sync
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            yield
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-            torch.cuda.synchronize = real_sync
-
-
+SYNC_REPORT = "called a synchronizing CUDA operation"   # PyTorch's warning
 def _fused_outputs(tracker):
     """Record what every ``_run`` of ``tracker`` returns; the returned list
     holds the last frame's (theta, labels, diag) as numpy arrays."""
@@ -2859,70 +2823,60 @@ def _equal(a, b) -> bool:
 def _drive(track, frames, dev, outputs, mode: str = "plain"):
     """Track ``frames``.  Per frame: the result, wall ms (host clock to a
     synchronise) and ``outputs()``; in mode "clock" also the stage clock's
-    stages; in mode "count" the synchronising copies and reads per scope
-    instead (the clock is on to name the scope, but a reported read costs
-    the host far more than the read, so this pass's times are dropped)."""
+    stages and its counted reads (``reads``) per scope."""
     import torch
 
     from avatar_tpu_torch import profiling
 
     rows = []
     for frame in frames:
-        counts, clock = {}, None
+        clock = None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if mode == "plain":
             res = track(frame)
         else:
             with profiling.stage_clock(dev) as clock:
-                if mode == "count":
-                    with _counting_syncs(counts):
-                        res = track(frame)
-                else:
-                    res = track(frame)
+                res = track(frame)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        rows.append(dict(res=res, wall_ms=ms, out=outputs(), syncs=counts,
-                         stages=clock.stages if mode == "clock" else {}))
+        stages = clock.stages if clock is not None else {}
+        rows.append(dict(res=res, wall_ms=ms, out=outputs(), stages=stages,
+                         syncs={k: v["counts"]["reads"]
+                                for k, v in stages.items()
+                                if v["counts"].get("reads")}))
     return rows
 
 
-def _summary(tag, path, rows, counted, steps="eager") -> dict:
+def _summary(tag, path, rows, steps="eager") -> dict:
     """One path's JSON line: per scope the medians over ``rows`` of the
-    clock's elapsed ms (device timeline), host ms and entries, and over
-    ``counted`` (the same frames in a pass of their own) of the
+    clock's elapsed ms (device timeline), host ms, entries and counted
     synchronising copies and reads; the frames' wall ms with its spread;
     and how far the scopes directly below a frame cover its own
     event-to-event ms."""
     med = lambda vals: float(np.median(vals))
-    names = sorted({k for r in rows for k in r["stages"]} |
-                   {k for r in counted for k in r["syncs"]})
+    names = sorted({k for r in rows for k in r["stages"]})
     scopes = {}
     for k in names:
         per = [r["stages"].get(k, {}) for r in rows]
-        scopes[k or "(outside)"] = dict(
+        scopes[k] = dict(
             {f: round(med([p.get(f, 0) for p in per]), 3)
              for f in ("elapsed_ms", "host_ms", "entries")},
-            syncs=med([r["syncs"].get(k, 0) for r in counted]))
-    explicit = scopes.pop("synchronize()", {}).get("syncs", 0)
+            syncs=med([r["syncs"].get(k, 0) for r in rows]))
     walls = [r["wall_ms"] for r in rows]
     cover = []
     for r in rows:
         st = r["stages"]
-        top = sum(v["elapsed_ms"] for k, v in st.items()
-                  if v["depth"] == 1 and k != "diag_read")
+        top = sum(v["elapsed_ms"] for v in st.values() if v["depth"] == 1)
         cover.append(top / st["frame"]["elapsed_ms"])
     line = dict(
         path=path, lm_steps=steps, frames=len(rows),
-        counted_frames=len(counted),
         deterministic_algorithms=True, wall_ms=round(med(walls), 3),
         wall_ms_spread=[round(min(walls), 3), round(max(walls), 3)],
         frame_elapsed_ms=scopes["frame"]["elapsed_ms"],
         scopes_cover_frame=round(med(cover), 4),
-        host_syncs_per_frame=med([sum(
-            n for k, n in r["syncs"].items() if k != "synchronize()")
-            for r in counted]),
-        explicit_synchronize_per_frame=explicit, scopes=scopes)
+        host_syncs_per_frame=med([sum(r["syncs"].values()) for r in rows]),
+        scopes=scopes)
     print(f"[{tag}] " + json.dumps(line), flush=True)
     for c in cover:
         if not 0.9 <= c <= 1.1:
@@ -2933,22 +2887,60 @@ def _summary(tag, path, rows, counted, steps="eager") -> dict:
     return line
 
 
-def _counted(tag, tracker, frames, dev, plain_rows, graphed=False):
-    """The first frames again on a fresh fused tracker with the
-    synchronising reads counted, its LM steps uncaptured unless
-    ``graphed``; they must equal the plain run's."""
+def _hold_reads(tag, path, tracker, track, frames, dev, eager=True):
+    """Track ``frames`` from a reinit on, its LM steps uncaptured if
+    ``eager``, twice: under ``profiling.counted_syncs_only()``, where a
+    synchronisation outside a counted read raises at its site; then each
+    frame under the stage clock with PyTorch's sync reports on
+    (``set_sync_debug_mode("warn")``; a pass of its own, since a report
+    costs the host far more than the read).  Fail unless each frame's
+    counted ``reads`` equal the synchronisations PyTorch reports for it.
+    Returns the reads per frame."""
+    import warnings
+
+    import torch
+
+    from avatar_tpu_torch import profiling
     from avatar_tpu_torch.optim import gauss_newton
 
-    out = _fused_outputs(tracker)
+    # _fused_outputs' wrapper reads the outputs outside any counted read
+    tracker.__dict__.pop("_run", None)
+    counted = []
     with contextlib.ExitStack() as stack:
-        if not graphed:
+        if eager:
             stack.enter_context(gauss_newton.eager_steps())
-        rows = _drive(tracker.track, frames, dev, lambda: list(out), "count")
-    for i, (rp, rk) in enumerate(zip(plain_rows, rows)):
-        if not _equal(rp["out"], rk["out"]):
-            fail(f"[{tag}] frame {i}: the counted run differs from the plain "
-                 "one")
-    return rows
+        for strict in (True, False):
+            tracker.reinit = True
+            for i, frame in enumerate(frames):
+                torch.cuda.synchronize()
+                if strict:
+                    with profiling.counted_syncs_only():
+                        res = track(frame)
+                else:
+                    with warnings.catch_warnings(record=True) as seen:
+                        warnings.simplefilter("always")
+                        with profiling.stage_clock(dev) as clock:
+                            torch.cuda.set_sync_debug_mode("warn")
+                            try:
+                                res = track(frame)
+                            finally:
+                                torch.cuda.set_sync_debug_mode("default")
+                    # not the one-time notice that the mode is a prototype
+                    reported = sum(SYNC_REPORT in str(w.message)
+                                   for w in seen)
+                    reads = sum(v["counts"].get("reads", 0)
+                                for v in clock.stages.values())
+                    if reads != reported or reported == 0:
+                        fail(f"[{tag}] {path} frame {i}: {reads} counted "
+                             f"reads, {reported} synchronisations reported "
+                             "by PyTorch")
+                    counted.append(reads)
+                if not res.ok or res.reinitialized != (i == 0):
+                    fail(f"[{tag}] {path}: witnessed frame {i} ok={res.ok}")
+    print(f"[{tag}] {path}: no uncounted synchronisation, and counted reads "
+          f"equal PyTorch's sync reports, on a reinit and a steady frame: "
+          f"{counted}", flush=True)
+    return counted
 
 
 def _need_scopes(tag, path, have, fits=("fit",), graphed=False):
@@ -3078,19 +3070,15 @@ def phase_stages(scene):
           f"warmup; kernel launches {launches}", flush=True)
     _need_scopes(tag, "fused", rows_w[1]["stages"])
     _need_scopes(tag, "fused reinit", rows_w[0]["stages"])
-    counted = _counted(tag, scene.tracker(), frames[:COUNTED], dev, rows_c)
-    lines["fused_reinit"] = _summary(tag, "fused_reinit", rows_w[:1],
-                                     counted[:1])
-    lines["fused_steady"] = _summary(tag, "fused_steady", rows_w[1:],
-                                     counted[1:])
+    _hold_reads(tag, "fused", warm, warm.track, frames[:2], dev)
+    lines["fused_reinit"] = _summary(tag, "fused_reinit", rows_w[:1])
+    lines["fused_steady"] = _summary(tag, "fused_steady", rows_w[1:])
     plain = [r["wall_ms"] for r in rows_c[1:]]
     print(f"[{tag}] fused steady wall ms with no clock (the cold tracker): "
           f"median {np.median(plain):.1f}, spread {min(plain):.1f}-"
           f"{max(plain):.1f}; reinit frame {rows_c[0]['wall_ms']:.1f} "
           f"(first use of this configuration in the process); under the "
-          f"clock: median {lines['fused_steady']['wall_ms']:.1f}; with the "
-          "synchronising reads reported as warnings too: "
-          + ", ".join(f"{r['wall_ms']:.1f}" for r in counted[1:]),
+          f"clock: median {lines['fused_steady']['wall_ms']:.1f}",
           flush=True)
     max_err = _hold_recorded(tag, calls)
 
@@ -3108,10 +3096,8 @@ def phase_stages(scene):
             fail(f"[{tag}] accuracy frame {i}: the clocked run differs from "
                  "the plain one")
     _need_scopes(tag, "accuracy", rows_k[1]["stages"], ("fit", "refine"))
-    counted = _counted(tag, scene.tracker(**acc), frames[:COUNTED], dev,
-                       rows_p)
-    lines["accuracy_steady"] = _summary(tag, "accuracy_steady", rows_k[1:],
-                                        counted[1:])
+    _hold_reads(tag, "accuracy", a_clock, a_clock.track, frames[:2], dev)
+    lines["accuracy_steady"] = _summary(tag, "accuracy_steady", rows_k[1:])
     plain = [r["wall_ms"] for r in rows_p[1:]]
     print(f"[{tag}] accuracy steady wall ms with no clock: median "
           f"{np.median(plain):.1f}, spread {min(plain):.1f}-"
@@ -3134,12 +3120,8 @@ def phase_stages(scene):
             fail(f"[{tag}] host frame {i}: the clocked run differs from the "
                  "plain one")
     _need_scopes(tag, "host", rows_k[1]["stages"])
-    h_count = _host_tracker(scene)
-    with gauss_newton.eager_steps():
-        counted = _drive(h_count.track, xyzs[:COUNTED], dev,
-                         host_out(h_count), "count")
-    lines["host_steady"] = _summary(tag, "host_steady", rows_k[1:],
-                                    counted[1:])
+    _hold_reads(tag, "host", h_clock, h_clock.track, xyzs[:2], dev)
+    lines["host_steady"] = _summary(tag, "host_steady", rows_k[1:])
     plain = [r["wall_ms"] for r in rows_p[1:]]
     print(f"[{tag}] host steady wall ms with no clock: median "
           f"{np.median(plain):.1f}, spread {min(plain):.1f}-"
@@ -3169,17 +3151,15 @@ def phase_stages(scene):
     _need_scopes(tag, "fused graphed", rows_g[1]["stages"], graphed=True)
     _need_scopes(tag, "fused reinit graphed", rows_g[0]["stages"],
                  graphed=True)
-    g_count = scene.tracker()
-    g_count.warmup(frames[0])
-    counted = _counted(tag, g_count, frames[:COUNTED], dev, rows_c,
-                       graphed=True)
     lines["fused_reinit_graphed"] = _summary(
-        tag, "fused_reinit_graphed", rows_g[:1], counted[:1], "graphed")
+        tag, "fused_reinit_graphed", rows_g[:1], "graphed")
     lines["fused_steady_graphed"] = _summary(
-        tag, "fused_steady_graphed", rows_g[1:], counted[1:], "graphed")
+        tag, "fused_steady_graphed", rows_g[1:], "graphed")
+    _hold_reads(tag, "fused graphed", g_clock, g_clock.track, frames[:2],
+                dev, eager=False)
     # the host tracker has no warmup: frame 0 captures the reinit fit's
     # graphs and frame 1 the steady fit's, so its steady line takes frames
-    # 2-5 (and the counted frames 2-3)
+    # 2-5
     h_graph = _host_tracker(scene)
     rows_hg = _drive(h_graph.track, xyzs, dev, host_out(h_graph), "clock")
     for i, (rp, rg) in enumerate(zip(rows_p, rows_hg)):
@@ -3187,11 +3167,12 @@ def phase_stages(scene):
             fail(f"[{tag}] graphed host frame {i}: differs from the plain "
                  "run")
     _need_scopes(tag, "host graphed", rows_hg[2]["stages"], graphed=True)
-    h_count = _host_tracker(scene)
-    counted = _drive(h_count.track, xyzs[:COUNTED + 1], dev,
-                     host_out(h_count), "count")
     lines["host_steady_graphed"] = _summary(
-        tag, "host_steady_graphed", rows_hg[2:], counted[2:], "graphed")
+        tag, "host_steady_graphed", rows_hg[2:], "graphed")
+    # its fits' graphs were captured on frames 0 and 1: the same frames
+    # again reuse them
+    _hold_reads(tag, "host graphed", h_graph, h_graph.track, xyzs[:2], dev,
+                eager=False)
 
     # a process's first track, cold against warmed, each in a process of
     # its own

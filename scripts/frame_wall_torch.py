@@ -22,11 +22,12 @@ With ``--paths`` each run measures instead, per path -- the fused
 tracker's reinit frame and steady frames, the accuracy mode's refine
 frames, the host tracker's steady frames and a ``track_batch`` of 16 --
 what its LM fits cost: the frame's wall ms (no clock), the fit's and the
-refine's elapsed ms under the stage clock, the synchronising copies and
-reads PyTorch reports inside them (``set_sync_debug_mode``, a pass of its
-own), and from a ``torch.profiler`` trace (last) the launches the host
-issues inside them (runtime and driver launch calls: a kernel's, or a
-whole CUDA graph's) beside the device's busy ms and kernel count there.
+refine's elapsed ms under the stage clock and the synchronising copies and
+reads the clock counts inside them (``reads``; 0 for a checkout whose
+program counts none), and from a ``torch.profiler`` trace (last) the
+launches the host issues inside them (runtime and driver launch calls: a
+kernel's, or a whole CUDA graph's) beside the device's busy ms and kernel
+count there.
 Every fused tracker is warmed (``warmup``) first; the host tracker, which
 has none, is measured on frames 2-5.
 """
@@ -189,18 +190,12 @@ def measure_paths(root: str) -> dict:
             if measured:
                 rows["clock"].append({k: clock.stages.get(k, {}).get(
                     "elapsed_ms", 0.0) / per for k in FIT_SCOPES})
-
-        def counted(measured, step):
-            counts = {}
-            with profiling.stage_clock(dev):
-                with chip_smoke._counting_syncs(counts):
-                    step()
-            if measured:
                 rows["syncs"].append({k: sum(
-                    n for s, n in counts.items()
+                    v.get("counts", {}).get("reads", 0)
+                    for s, v in clock.stages.items()
                     if s.split("/")[0] == k) / per for k in FIT_SCOPES})
 
-        for each in (plain, clocked, counted):
+        for each in (plain, clocked):
             run(make(), each)
     # the traces last: a process that has run the profiler pays more for
     # every launch after it

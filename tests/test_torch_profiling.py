@@ -40,9 +40,10 @@ CFG = dict(data_interval=3, min_points=300, rtree_interval=3,
 # the scopes of one LM step, below ``fit`` and below ``refine``
 LM_SCOPES = ("plan", "lbs", "vis", "nn", "weights", "cost", "jacobian",
              "gram", "solve", "trial", "trial/lbs", "sync")
-FRAME_SCOPES = ("bgsub", "bgsub/sync", "forest_walk", "forest_walk/sync",
-                "blob_suppress", "fit", "glue/xyz", "glue/centroids",
-                "glue/splat", "glue/sample", "glue/diag")
+FRAME_SCOPES = ("upload", "bgsub", "bgsub/sync", "forest_walk",
+                "forest_walk/sync", "blob_suppress", "fit", "glue/xyz",
+                "glue/centroids", "glue/splat", "glue/sample", "glue/diag",
+                "diag_read", "glue/update")
 
 
 @pytest.fixture(scope="module")
@@ -197,8 +198,7 @@ def test_stage_clock_over_tracked_frames(scene, monkeypatch):
         refine = i == 2                      # refine_every=2: _frame_no 2
         fits = ("fit", "refine") if refine else ("fit",)
         want = set(FRAME_SCOPES) | {f"{f}/{s}" for f in fits
-                                    for s in LM_SCOPES} | {"frame",
-                                                            "diag_read"}
+                                    for s in LM_SCOPES} | {"frame"}
         if refine:
             want |= {"refine", "refine/surface"}
         if i == 0:                           # no window, no splat work
@@ -223,15 +223,16 @@ def test_stage_clock_over_tracked_frames(scene, monkeypatch):
                 assert st[f"{f}/{s}"]["entries"] == lin, s
             assert st[f"{f}/lbs"]["entries"] == st[f]["entries"] == runs
             assert st[f"{f}/plan"]["entries"] == runs
-        assert st["frame"]["entries"] == st["bgsub"]["entries"] == runs
-        assert st["diag_read"]["entries"] == runs
+        # one root per track call, around every run of the pipeline
+        assert st["frame"]["entries"] == st["upload"]["entries"] == 1
+        assert st["bgsub"]["entries"] == st["diag_read"]["entries"] == runs
         assert st["frame"]["depth"] == 0 and st["fit"]["depth"] == 1
+        assert st["diag_read"]["depth"] == st["upload"]["depth"] == 1
         assert st["fit/trial/lbs"]["depth"] == 3
         for name, v in st.items():
             assert v["elapsed_ms"] >= 0 and v["host_ms"] >= 0, name
         # the stages cover the frame: on the CPU the clock is the host's
-        top = sum(v["elapsed_ms"] for k, v in st.items()
-                  if v["depth"] == 1 and k != "diag_read")
+        top = sum(v["elapsed_ms"] for k, v in st.items() if v["depth"] == 1)
         assert 0.9 * st["frame"]["elapsed_ms"] <= top <= \
             st["frame"]["elapsed_ms"]
     for a, b in zip(tracker._theta, plain._theta):
