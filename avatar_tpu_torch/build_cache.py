@@ -10,11 +10,34 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import subprocess
 from pathlib import Path
 from typing import Callable, Sequence
 
 BUILD = Path(__file__).resolve().parent / "_build"
+# the hand-written CUDA kernels' flags: Hopper's sm_90a, no fused
+# multiply-add (each kernel's arithmetic is its plain version's to the bit),
+# a shared library with plain C entry points; ptxas reports registers
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, the one on ``PATH``, or
+    the one under PyTorch's CUDA home."""
+    home = os.environ.get("CUDA_HOME")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
 def cached_path(src: Path, flags: Sequence[str], stem: str,

@@ -25,3 +25,25 @@ def get_device(name: str | torch.device = "cuda") -> torch.device:
         raise RuntimeError(f"device {name!r} requested but CUDA is not "
                            "available")
     return dev
+
+
+def current_stream(index: int) -> int:
+    """The raw handle of the current CUDA stream of device ``index``, for a
+    kernel launched through ctypes."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:         # the same handle, without building a Stream
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def want(name: str, t: torch.Tensor, dev, dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``dev``: what a hand-written kernel's wrapper checks before it passes
+    the tensor's pointer."""
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, not on {dev}")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: want {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import math
 import threading
 from types import SimpleNamespace
@@ -368,13 +369,23 @@ class _Program:
             torch.cuda.current_stream(dev).wait_stream(stream)
             for t, k in zip(bufs, kept):
                 t.copy_(k)
-            for name, fn in self.fns.items():
-                g = torch.cuda.CUDAGraph()
-                with nn_kernel.captured_launches() as counts:
-                    with torch.cuda.graph(g, pool=pool, stream=stream,
-                                          capture_error_mode="thread_local"):
-                        fn()
-                graphs[name], launches[name] = g, dict(counts)
+            # no collection inside a capture: one that frees a dropped
+            # program's graphs there destroys them mid-capture, which
+            # invalidates the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                for name, fn in self.fns.items():
+                    g = torch.cuda.CUDAGraph()
+                    with nn_kernel.captured_launches() as counts:
+                        with torch.cuda.graph(
+                                g, pool=pool, stream=stream,
+                                capture_error_mode="thread_local"):
+                            fn()
+                    graphs[name], launches[name] = g, dict(counts)
+            finally:
+                if collecting:
+                    gc.enable()
         self.graphs, self.launches = graphs, launches
         CAPTURES += 1
 

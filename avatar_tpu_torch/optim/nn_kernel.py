@@ -25,22 +25,19 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import os
-import shutil
 import threading
 from pathlib import Path
 from typing import NamedTuple, Optional
 
 import torch
 
-from avatar_tpu_torch.build_cache import BUILD, build_cached, cached_path
+from avatar_tpu_torch.build_cache import (BUILD, NVCC_FLAGS, build_cached,
+                                          cached_path, nvcc)
+from avatar_tpu_torch.device import current_stream, want as _want
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc" / "nn_argmin.cu"
 _BUILD = BUILD
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler",
-               "-fPIC", "-Xptxas", "-v")
 _ROWS = 64           # data rows per work unit (csrc/nn_argmin.cu kRows)
 _MAX_CHUNK = 3072    # csrc/nn_argmin.cu kMaxChunk
 _MAX_TILES = 1024    # csrc/nn_argmin.cu kMaxTiles
@@ -55,23 +52,9 @@ _lib = None          # the bound library, once built
 _capture = threading.local()   # .counts: the capture being recorded
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME")
-    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-        return os.path.join(home, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
 def library_path() -> Path:
     """Where the built library of the current source and flags goes."""
-    return cached_path(_SRC, _NVCC_FLAGS, "libnn_argmin", _BUILD)
+    return cached_path(_SRC, NVCC_FLAGS, "libnn_argmin", _BUILD)
 
 
 def build() -> str:
@@ -82,8 +65,8 @@ def build() -> str:
     if _lib is not None:
         return ""
     lib_path, log = build_cached(
-        _SRC, _NVCC_FLAGS, "libnn_argmin",
-        lambda out: [_nvcc(), *_NVCC_FLAGS, "-o", str(out), str(_SRC)],
+        _SRC, NVCC_FLAGS, "libnn_argmin",
+        lambda out: [nvcc(), *NVCC_FLAGS, "-o", str(out), str(_SRC)],
         _BUILD)
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -125,13 +108,6 @@ _scratch = {}        # (device index, stream) -> uint8 scratch tensor
 _scratch_bytes = {}  # (n, pp) -> bytes one launch needs
 
 
-def _current_stream(index: int) -> int:
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:         # the same handle, without building a Stream
-        return raw(index)
-    return torch.cuda.current_stream(index).cuda_stream
-
-
 def _launch(name: str, entry: str, dev: torch.device, n: int, pp: int,
             head: tuple, tail: tuple) -> None:
     """The one launch site: the C call ``entry(*head, scratch, *tail,
@@ -151,7 +127,7 @@ def _launch(name: str, entry: str, dev: torch.device, n: int, pp: int,
                            "its replays would not be counted")
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
-    stream = _current_stream(index)
+    stream = current_stream(index)
     need = _scratch_bytes.get((n, pp))
     if need is None:
         need = _scratch_bytes[(n, pp)] = _lib.avatar_nn_scratch_bytes(n, pp)
@@ -174,16 +150,6 @@ def _launch(name: str, entry: str, dev: torch.device, n: int, pp: int,
         counts[name] += 1
     else:
         LAUNCHES[name] += 1
-
-
-def _want(name: str, t: torch.Tensor, dev, dtype, shape) -> None:
-    if t.device != dev:
-        raise ValueError(f"{name} is on {t.device}, not on {dev}")
-    if t.dtype != dtype or tuple(t.shape) != shape:
-        raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _check_sizes(N: int, Pp: int, tile_n: int, chunk: int, wild: int) -> None:

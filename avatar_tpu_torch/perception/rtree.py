@@ -9,8 +9,10 @@ number of steps (leaves self-loop).  Node fields are gathered one by one
 instead of through the reference's bit-cast row packing; the leaf ids are
 the same either way.  ``torch.round`` and ``jnp.round`` both round half to
 even, and the ``u / z`` division is kept where it is, so leaf ids match the
-reference bit for bit.  The ``RTree`` API's copies between host and device
-are counted reads (``profiling.host_read``, ``to_device``).
+reference bit for bit.  On the card the walk is one hand-written CUDA
+kernel per tree set (``walk_kernel``); ``walk_pixels_plain`` is its plain
+version, which the CPU runs.  The ``RTree`` API's copies between host and
+device are counted reads (``profiling.host_read``, ``to_device``).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 
 from avatar_tpu_torch.device import get_device
 from avatar_tpu_torch.io import formats
-from avatar_tpu_torch.perception import cc
+from avatar_tpu_torch.perception import cc, walk_kernel
 from avatar_tpu_torch.profiling import host_read, to_device
 
 BACKGROUND_DEPTH = 20.0  # meters (reference RTree.cpp:325)
@@ -54,13 +56,41 @@ def _tree_depth(lnode, rnode, leafid) -> int:
 
 
 def walk_pixels(tree: TreeTensors, ys, xs, z, fg, probe_flat, probe_shape,
-                max_depth: int, top_left, bot_right) -> torch.Tensor:
+                max_depth: int, top_left, bot_right,
+                trees: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Leaf ids of an arbitrary pixel set (-1 where not ``fg``).
 
     ys/xs: int pixel coordinates in probe-image space; z: their depths;
     fg: bool validity; probe_flat: the flattened probe image;
-    top_left/bot_right: inclusive (x, y) ROI bounds.
+    top_left/bot_right: inclusive (x, y) ROI bounds.  ``trees = (t0, t1)``
+    walks those trees of a stacked [T, ...] forest: ids [t1 - t0,
+    *ys.shape].  CUDA tensors go through the kernel (``walk_kernel.walk``,
+    which raises on what it does not take), CPU tensors through
+    ``walk_pixels_plain``.
     """
+    if ys.device.type == "cuda":
+        return walk_kernel.walk(tree, ys, xs, z, fg, probe_flat, probe_shape,
+                                max_depth, top_left, bot_right, trees)
+    if ys.device.type != "cpu":
+        raise ValueError(f"no walk for device {ys.device}")
+    return walk_pixels_plain(tree, ys, xs, z, fg, probe_flat, probe_shape,
+                             max_depth, top_left, bot_right, trees)
+
+
+def walk_pixels_plain(tree: TreeTensors, ys, xs, z, fg, probe_flat,
+                      probe_shape, max_depth: int, top_left, bot_right,
+                      trees: Optional[Tuple[int, int]] = None
+                      ) -> torch.Tensor:
+    """Plain PyTorch version of ``walk_pixels``: the fixed-depth level loop,
+    one tree at a time."""
+    if (tree.u.dim() == 3) != (trees is not None):
+        raise ValueError("a tree range goes with a stacked [T, N] forest, "
+                         "and only with one")
+    if trees is not None:
+        return torch.stack([walk_pixels_plain(
+            TreeTensors(*(a[t] for a in tree)), ys, xs, z, fg, probe_flat,
+            probe_shape, max_depth, top_left, bot_right)
+            for t in range(*trees)])
     Hp, Wp = probe_shape
     tlx, tly = top_left
     brx, bry = bot_right
@@ -113,9 +143,10 @@ def forest_walk(tree: TreeTensors, depth_img: torch.Tensor, max_depth: int,
     brx, bry = bot_right
     z = depth_img.reshape(-1)[torch.clamp(ys_l * W + xs_l, max=H * W - 1)]
     fg = (z > 0) & (xs >= tlx) & (xs <= brx) & (ys >= tly) & (ys <= bry)
-    return walk_pixels(tree, ys.expand(Hs, Ws), xs.expand(Hs, Ws), z, fg,
-                       probe_img.reshape(-1), (Hp, Wp), max_depth,
-                       top_left, bot_right)
+    return walk_pixels(tree, ys.expand(Hs, Ws).contiguous(),
+                       xs.expand(Hs, Ws).contiguous(), z, fg,
+                       probe_img.reshape(-1).contiguous(), (Hp, Wp),
+                       max_depth, top_left, bot_right)
 
 
 def upscale_grid(image: torch.Tensor, interval: int, top_left, bot_right

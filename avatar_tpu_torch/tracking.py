@@ -162,7 +162,8 @@ class Tracker:
         """The frame, its stages under the fused tracker's scope names."""
         c = self.config
         H, W = xyz_map.shape[:2]
-        depth = np.ascontiguousarray(xyz_map[..., 2]).copy()
+        with scope("glue/depth"):
+            depth = np.ascontiguousarray(xyz_map[..., 2]).copy()
 
         # background subtraction (demo.cpp:179-193)
         with self.timer.stage("bg_subtraction"), scope("bgsub"):

@@ -174,10 +174,6 @@ def _bg_subtract(xyz_s, bg_s, nn_t, nb_t, min_pts, cc_sub: int = 4,
     return keep[: fg.shape[0], : fg.shape[1]] & fg
 
 
-def _tree_at(tree: TreeTensors, t: int) -> TreeTensors:
-    return TreeTensors(*(a[t] for a in tree))
-
-
 def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
                       tree: Optional[TreeTensors],
                       parents: Tuple[int, ...], depth: torch.Tensor,
@@ -259,11 +255,12 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
         def walk_set(pys, pxs, pz, pfg, pflat, pshape, ptl, pbr):
             """Conf-gated best label over a pixel set, and the selective
             walk's bucket overflow fraction."""
-            walk = lambda tt, ys_, xs_, z_, fg_: walk_pixels(
-                tt, ys_, xs_, z_, fg_, pflat, pshape, max_depth, ptl, pbr)
+            walk = lambda ys_, xs_, z_, fg_, trees=None: walk_pixels(
+                tree_scaled, ys_, xs_, z_, fg_, pflat, pshape, max_depth,
+                ptl, pbr, trees)
             zero = torch.zeros((), dtype=torch.float32, device=dev)
             if not multi:
-                leaf = walk(tree_scaled, pys, pxs, pz, pfg)
+                leaf = walk(pys, pxs, pz, pfg)
                 lc = torch.clamp(leaf, min=0).long()
                 best1 = tree.leaf_best[lc]
                 keep = (leaf >= 0) & (tree.leaf_conf[lc] >=
@@ -275,7 +272,7 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
                 # low-confidence pixels, compacted into a K/3 bucket, pay
                 # for the other trees.  Overflow keeps the gated tree-0
                 # label.
-                leaf0 = walk(_tree_at(tree_scaled, 0), pys, pxs, pz, pfg)
+                leaf0 = walk(pys, pxs, pz, pfg, (0, 1))[0]
                 l0 = torch.clamp(leaf0, min=0).long()
                 best0 = tree.leaf_best[0][l0]
                 conf0 = torch.where(leaf0 >= 0, tree.leaf_conf[0][l0], 0.0)
@@ -289,9 +286,9 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
                 tie2 = _hash_noise(K, 2654435761, dev)
                 hsel = _top_k(hard.to(torch.float32) * 2.0 + tie2, min(K2, K))
                 hard_sel = hard[hsel]
-                leafs_h = [walk(_tree_at(tree_scaled, t), pys[hsel],
-                                pxs[hsel], pz[hsel], hard_sel)
-                           for t in range(1, T)]
+                # trees 1..T-1 over the hard pixels: one launch
+                leafs_h = walk(pys[hsel], pxs[hsel], pz[hsel], hard_sel,
+                               (1, T))
                 lf0_h = leaf0[hsel]
                 d0_h = torch.where((lf0_h >= 0)[..., None], tree.leaf_data[0][
                     torch.clamp(lf0_h, min=0).long()], 0.0)
@@ -318,8 +315,7 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
             # multi-tree: average leaf distributions over trees
             # (reference rtree-run.cpp:92-121), then argmax + gate
             dsum = votes = None
-            for t in range(T):
-                lf = walk(_tree_at(tree_scaled, t), pys, pxs, pz, pfg)
+            for t, lf in enumerate(walk(pys, pxs, pz, pfg, (0, T))):
                 dist = torch.where((lf >= 0)[..., None], tree.leaf_data[t][
                     torch.clamp(lf, min=0).long()], 0.0)
                 v = (lf >= 0).to(dist.dtype)
@@ -353,7 +349,7 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
             # compact the region's foreground into a static bucket (overflow
             # drops pixels by the hash-noise tie-break) and walk only those
             WALK_K = 3072 if seg_window is not None else 4096
-            rflat = region.reshape(-1)
+            rflat = region.reshape(-1).contiguous()
             rfg = rflat > 0
             tie = _hash_noise(rflat.shape[0], 2654435761, dev)
             sel = _top_k(rfg.to(torch.float32) * 2.0 + tie,
@@ -373,7 +369,8 @@ def _fused_frame_impl(ctx: FitContext, ctx_fit: Optional[FitContext],
                 lab_oy, lab_ox = roy, rox
             else:
                 lab_sel, hard_overflow = walk_set(
-                    ys_sel, xs_sel, z_sel, fg_sel, depth_s.reshape(-1),
+                    ys_sel, xs_sel, z_sel, fg_sel,
+                    depth_s.reshape(-1).contiguous(),
                     (Hs, Ws), (0, 0), (Ws - 1, Hs - 1))
                 Hl, Wl = Hs, Ws
                 pos = torch.where(fg_sel, ys_sel * Ws + xs_sel, Hs * Ws)

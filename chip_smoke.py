@@ -7,8 +7,8 @@ Needs one CUDA device and nvcc; imports nothing of JAX.  Phases, one line
 each (any failure exits non-zero and prints no result):
 
 1. device — the card's name and power limit from nvidia-smi;
-2. build — compiles the hand-written kernel (avatar_tpu_torch/csrc/
-   nn_argmin.cu) from the checkout;
+2. build — compiles the hand-written kernels (avatar_tpu_torch/csrc/
+   nn_argmin.cu, forest_walk.cu) from the checkout;
 3. kernel — the kernel against its plain PyTorch version at the fit's
    shapes (N = 8192 steady state and 32768 reinit rows, 6656 model slots,
    14 groups, wildcards and padding): indices equal, d2 within rtol 1e-6,
@@ -23,6 +23,17 @@ each (any failure exits non-zero and prints no result):
    synchronise: the enqueue cost per call; ``call_ms``, events around one
    call on an idle device (median of 20), which holds both.  The fused
    entry (``find_nn_stats_planned``) is timed the same way;
+3b. walk — the forest walk's kernel (``perception/walk_kernel.py``)
+   against its plain version (``rtree.walk_pixels_plain``, the eager level
+   loop) on frame 1 of the fixture, background removed, at the three
+   shapes its callers give it: tree 0 of the stacked r5 forest over the
+   fused tracker's 3,072-pixel bucket of its 192x149 window, trees [1, 3)
+   over 1,024 of those pixels in one launch, and the demo forest over the
+   host tracker's 640x360 grid (stride 2) inside a body ROI.  Leaf ids
+   equal to the bit; ``device_ms``, ``host_us`` and ``call_ms`` as in
+   phase 3, the plain version's ms, and the bound: the levels the walks
+   visit (32 node bytes and two 4-byte probes each), the pixels read and
+   the ids written, over HBM bandwidth;
 4. slice — ``FusedTracker.track`` at 1280x720 with the bench's config, the
    3-tree r5 forest and background subtraction, on the 6 frames of
    tests/fixtures/torch_port_720p.npz (one reinit, then steady state).
@@ -203,8 +214,12 @@ each (any failure exits non-zero and prints no result):
    event-to-event ms; every stage and LM-step scope shows; B1 was
    launched, and equals its plain version on every recorded search.  Then
    a process's first ``track`` cold (a child process that builds the
-   kernel inside that call) against warmed (a child that calls ``warmup``
-   first): wall ms each, and the same pose to the bit.
+   kernels inside that call) against warmed (a child that calls ``warmup``
+   first): wall ms each, and the same pose to the bit.  Last, the fused
+   and host paths graphed once more with every walk through the plain
+   eager version (the walk before its kernel): ``forest_walk`` ms and the
+   kernel's ``walk_launches`` per steady frame before and after (two a
+   fused frame, one a host frame, after).
 12. profile — ``torch.profiler``, last because a process that has run it
    pays more for every launch after it.  The planned search of phase 3:
    device launches per search and each kernel's own device time.  Then
@@ -215,7 +230,9 @@ each (any failure exits non-zero and prints no result):
    share of each scope in which the card worked.  Fails unless the trace
    holds device events, every scope of phase 11 shows in it, the stages
    sum to ``total_ms`` and ``total_ms`` is not above the traced frames'
-   wall ms.  Phases 11 and 12 run each path with its LM steps uncaptured
+   wall ms; the graphed fused and host paths with plain walks too, for
+   the walk's launches per steady frame before and after its kernel.
+   Phases 11 and 12 run each path with its LM steps uncaptured
    (the per-part view of a step, ``lm_steps`` "eager") and the fused
    reinit and steady and the host paths again graphed (``fit/step`` is a
    replay; "graphed").
@@ -320,13 +337,16 @@ def phase_device():
 
 def phase_build():
     from avatar_tpu_torch.optim import nn_kernel
+    from avatar_tpu_torch.perception import walk_kernel
 
-    t0 = time.perf_counter()
-    log = nn_kernel.build()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[build] nn_argmin.cu built in {time.perf_counter() - t0:.2f} s; "
-          + " | ".join(ptxas), flush=True)
+    for src, build in (("nn_argmin.cu", nn_kernel.build),
+                       ("forest_walk.cu", walk_kernel.build)):
+        t0 = time.perf_counter()
+        log = build()
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"[build] {src} built in {time.perf_counter() - t0:.2f} s; "
+              + " | ".join(ptxas), flush=True)
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -502,6 +522,133 @@ def phase_profile(search):
           " device us per launch: " + ", ".join(
               f"{k[:60]} x{c:g} {us:.2f}" for k, (c, us) in prof.items()),
           flush=True)
+
+
+WALK_NODE_BYTES = 32     # leafid, u, v, thresh, lnode, rnode of one node
+WALK_PIXEL_BYTES = 21    # ys, xs (int64), z (float32), fg (one byte)
+
+
+def _walk_bytes(tree, leaf, trees) -> int:
+    """Bytes one walk needs: per (tree, pixel) the internal nodes on its
+    path (32 bytes and two 4-byte probes each) and its leaf's id, each
+    pixel read once and each id written once."""
+    stacked = trees is not None
+    ids = leaf.reshape(leaf.shape[0] if stacked else 1, -1).cpu().numpy()
+    n_bytes = ids.size * 4 + ids.shape[1] * WALK_PIXEL_BYTES
+    for i, t in enumerate(range(*trees) if stacked else [None]):
+        pick = (lambda a: a[t]) if stacked else (lambda a: a)
+        lnode, rnode, leafid = (pick(a).cpu().numpy() for a in (
+            tree.lnode, tree.rnode, tree.leafid))
+        depth = np.zeros(leafid.shape[0], np.int64)
+        stack = [0]
+        while stack:                    # leaves self-loop: stop at them
+            n = stack.pop()
+            if leafid[n] < 0:
+                for c in (lnode[n], rnode[n]):
+                    depth[c] = depth[n] + 1
+                    stack.append(c)
+        leaf_node = np.zeros(int(leafid.max()) + 1, np.int64)
+        leaf_node[leafid[leafid >= 0]] = np.nonzero(leafid >= 0)[0]
+        got = ids[i][ids[i] >= 0]
+        n_bytes += int(depth[leaf_node[got]].sum()) * (WALK_NODE_BYTES + 8)
+        n_bytes += got.size * 4
+    return n_bytes
+
+
+@contextlib.contextmanager
+def _plain_walks():
+    """Every CUDA walk through the plain eager version: the walk as it ran
+    before its kernel, for a reading before and after."""
+    from avatar_tpu_torch.perception import rtree, walk_kernel
+
+    real = walk_kernel.walk
+    walk_kernel.walk = rtree.walk_pixels_plain
+    try:
+        yield
+    finally:
+        walk_kernel.walk = real
+
+
+def phase_walk(scene):
+    """The forest walk's kernel against its plain version at the fused
+    bucket, the hard set and the host grid: leaf ids equal to the bit,
+    times and bound.  Returns the records by case."""
+    import torch
+
+    from avatar_tpu_torch.perception import rtree, walk_kernel
+    from avatar_tpu_torch.tracking_fused import _stack_trees
+
+    dev = scene.dev
+    d = scene.frames[1].astype(np.float32) * 1e-3
+    depth = torch.as_tensor(np.where(d < scene.bg_m - 0.1, d, 0.0).astype(
+        np.float32), device=dev)
+    ss = BENCH_CFG["rtree_interval"]
+    stacked = _stack_trees([t._tree for t in scene.trees], ss)
+    max_depth = max(t._max_depth for t in scene.trees)
+    # the fused tracker's window of the strided frame, centred on the body
+    d_s = depth[::ss, ::ss]
+    wh, ww = 576 // ss, 448 // ss
+    by, bx = torch.nonzero(d_s > 0, as_tuple=True)
+    oy = min(max(int(by.float().mean()) - wh // 2, 0), d_s.shape[0] - wh)
+    ox = min(max(int(bx.float().mean()) - ww // 2, 0), d_s.shape[1] - ww)
+    rflat = d_s[oy:oy + wh, ox:ox + ww].reshape(-1).contiguous()
+    rfg = rflat > 0
+    tie = torch.rand(rflat.shape[0], device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(3))
+    sel = torch.argsort(-(rfg.float() * 2.0 + tie), stable=True)[:3072]
+    bucket = (sel // ww, sel % ww, rflat[sel], rfg[sel], rflat, (wh, ww),
+              max_depth, (0, 0), (ww - 1, wh - 1))
+    hard = torch.randperm(3072, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(4))[:1024]
+    hard_set = tuple(a[hard] for a in bucket[:4]) + bucket[4:]
+    # the host tracker's grid: forest_walk at stride 2 over the frame
+    host = scene.trees[0]
+    hy, hx = torch.nonzero(depth > 0, as_tuple=True)
+    tl = (int(hx.min()) - 40, int(hy.min()) - 40)
+    br = (int(hx.max()) + 40, int(hy.max()) + 40)
+    gy = (torch.arange(H // 2, device=dev) * 2)[:, None].expand(
+        H // 2, W // 2).contiguous()
+    gx = (torch.arange(W // 2, device=dev) * 2)[None, :].expand(
+        H // 2, W // 2).contiguous()
+    z = depth[::2, ::2].contiguous()
+    fg = (z > 0) & (gx >= tl[0]) & (gx <= br[0]) & (gy >= tl[1]) & \
+        (gy <= br[1])
+    grid = (gy, gx, z, fg, depth.reshape(-1), (H, W), host._max_depth, tl,
+            br)
+    rec = {}
+    for name, tree, args, trees in (
+            ("bucket", stacked, bucket, (0, 1)),
+            ("hard", stacked, hard_set, (1, 3)),
+            ("host_grid", host._tree, grid, None)):
+        run = lambda: rtree.walk_pixels(tree, *args, trees=trees)
+        plain = lambda: rtree.walk_pixels_plain(tree, *args, trees=trees)
+        before = walk_kernel.LAUNCHES
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        if walk_kernel.LAUNCHES != before + 1:
+            fail(f"[walk] {name}: the walk did not launch its kernel once")
+        if not torch.equal(got, ref):
+            fail(f"[walk] {name}: {int((got != ref).sum())} leaf ids differ "
+                 "from the plain version")
+        k = args[0].numel()
+        n_bytes = _walk_bytes(tree, got, trees)
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        device_ms = _device_ms(run, dev)
+        host_us = _host_us(run)
+        call_ms = _time_ms(run)
+        plain_ms = _time_ms(plain)
+        n_trees = 1 if trees is None else trees[1] - trees[0]
+        print(f"[walk] {name}: {n_trees} tree(s) x {k} pixels "
+              f"({int(args[3].sum())} foreground), max_depth {args[6]}: leaf "
+              f"ids equal to the plain version; device_ms {device_ms:.5f}, "
+              f"host_us {host_us:.2f}, call_ms {call_ms:.4f}, plain "
+              f"{plain_ms:.3f} ms; bound {bound_ms * 1e3:.3f} us by bytes "
+              f"({n_bytes} bytes: levels visited, pixels, ids)", flush=True)
+        rec[name] = dict(ms=device_ms, device_ms=device_ms, host_us=host_us,
+                         call_ms=call_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by="bytes", pixels=k,
+                         trees=n_trees)
+    return rec
 
 
 def _reset_counts() -> None:
@@ -2776,18 +2923,20 @@ LM_SCOPES = ("lbs", "vis", "nn", "weights", "jacobian", "gram", "solve",
 GRAPHED_LM_SCOPES = ("lbs", "step", "sync")     # a replay is one scope
 SYNC_REPORT = "called a synchronizing CUDA operation"   # PyTorch's warning
 def _fused_outputs(tracker):
-    """Record what every ``_run`` of ``tracker`` returns; the returned list
-    holds the last frame's (theta, labels, diag) as numpy arrays."""
+    """Keep what every ``_run`` of ``tracker`` returns; the returned
+    function reads the last one's (theta, labels, diag) as numpy arrays.
+    Called after the frame, so the frame's clock holds none of these
+    reads."""
     last, run = [], tracker._run
 
     def keep(*a, **kw):
         out = run(*a, **kw)
-        last[:] = [t.cpu().numpy() for t in out.theta] + [
-            out.labels_strided.cpu().numpy(), out.host_diag.cpu().numpy()]
+        last[:] = [out]
         return out
 
     tracker._run = keep
-    return last
+    return lambda: [a.cpu().numpy() for out in last for a in (
+        *out.theta, out.labels_strided, out.host_diag)]
 
 
 def _tracker_state(tracker) -> dict:
@@ -2903,8 +3052,6 @@ def _hold_reads(tag, path, tracker, track, frames, dev, eager=True):
     from avatar_tpu_torch import profiling
     from avatar_tpu_torch.optim import gauss_newton
 
-    # _fused_outputs' wrapper reads the outputs outside any counted read
-    tracker.__dict__.pop("_run", None)
     counted = []
     with contextlib.ExitStack() as stack:
         if eager:
@@ -2964,6 +3111,7 @@ def first_track(mode: str) -> None:
 
     from avatar_tpu_torch.device import get_device
     from avatar_tpu_torch.optim import nn_kernel
+    from avatar_tpu_torch.perception import walk_kernel
 
     torch.use_deterministic_algorithms(True)
     scene = Scene(get_device("cuda:0"))
@@ -2971,8 +3119,8 @@ def first_track(mode: str) -> None:
     frame = scene.frames[0]
     out = dict(mode=mode, warmup_ms=0.0)
     with tempfile.TemporaryDirectory() as tmp:
-        if mode == "cold":
-            nn_kernel._BUILD = Path(tmp)    # nothing built: nvcc runs
+        if mode == "cold":              # nothing built: nvcc runs
+            nn_kernel._BUILD = walk_kernel._BUILD = Path(tmp)
         torch.cuda.synchronize()
         if mode == "warm":
             t0 = time.perf_counter()
@@ -3025,7 +3173,7 @@ def phase_stages(scene):
     if not _equal(_tracker_state(warm), before):
         fail(f"[{tag}] warmup(batch=2) changed the tracker's state")
     out_c, out_w = _fused_outputs(cold), _fused_outputs(warm)
-    rows_c = _drive(cold.track, frames, dev, lambda: list(out_c))
+    rows_c = _drive(cold.track, frames, dev, out_c)
     with tempfile.TemporaryDirectory() as tmp:
         # the main path of this phase: warmed, logged, under the clock
         log = os.path.join(tmp, "metrics.jsonl")
@@ -3034,7 +3182,7 @@ def phase_stages(scene):
         calls = []
         _reset_counts()
         with _recording(calls), gauss_newton.eager_steps():
-            rows_w = _drive(warm.track, frames, dev, lambda: list(out_w),
+            rows_w = _drive(warm.track, frames, dev, out_w,
                             "clock")
         launches = dict(nn_kernel.LAUNCHES)
         warm.close_metrics()
@@ -3086,10 +3234,10 @@ def phase_stages(scene):
     acc = dict(refine_every=1, refine_steps=2)
     a_plain, a_clock = scene.tracker(**acc), scene.tracker(**acc)
     out_p, out_k = _fused_outputs(a_plain), _fused_outputs(a_clock)
-    rows_p = _drive(a_plain.track, frames, dev, lambda: list(out_p))
+    rows_p = _drive(a_plain.track, frames, dev, out_p)
     calls = []
     with _recording(calls), gauss_newton.eager_steps():
-        rows_k = _drive(a_clock.track, frames, dev, lambda: list(out_k),
+        rows_k = _drive(a_clock.track, frames, dev, out_k,
                         "clock")
     for i, (rp, rk) in enumerate(zip(rows_p, rows_k)):
         if not rk["res"].ok or not _equal(rp["out"], rk["out"]):
@@ -3135,7 +3283,7 @@ def phase_stages(scene):
     g_clock.warmup(frames[0])
     out_g = _fused_outputs(g_clock)
     _reset_counts()
-    rows_g = _drive(g_clock.track, frames, dev, lambda: list(out_g),
+    rows_g = _drive(g_clock.track, frames, dev, out_g,
                     "clock")
     launches = dict(nn_kernel.LAUNCHES)
     for i, (rc, rg) in enumerate(zip(rows_c, rows_g)):
@@ -3173,6 +3321,49 @@ def phase_stages(scene):
     # again reuse them
     _hold_reads(tag, "host graphed", h_graph, h_graph.track, xyzs[:2], dev,
                 eager=False)
+
+    # the graphed paths again with every walk through the plain eager
+    # version: the walk before its kernel
+    with _plain_walks():
+        p_clock = scene.tracker()
+        p_clock.warmup(frames[0])
+        out_pw = _fused_outputs(p_clock)
+        rows_pw = _drive(p_clock.track, frames, dev, out_pw,
+                         "clock")
+        h_pw = _host_tracker(scene)
+        rows_hpw = _drive(h_pw.track, xyzs, dev, host_out(h_pw), "clock")
+    for i, (rc, rp) in enumerate(zip(rows_c, rows_pw)):
+        if not rp["res"].ok or not _equal(rc["out"], rp["out"]):
+            fail(f"[{tag}] plain-walk frame {i}: differs from the kernel's "
+                 "(theta, labels or diag)")
+    for i, (rp, rg) in enumerate(zip(rows_p, rows_hpw)):
+        if not rg["res"].ok or not _equal(rp["out"], rg["out"]):
+            fail(f"[{tag}] plain-walk host frame {i}: differs from the "
+                 "kernel's")
+    lines["fused_steady_graphed_plain_walk"] = _summary(
+        tag, "fused_steady_graphed_plain_walk", rows_pw[1:], "graphed")
+    lines["host_steady_graphed_plain_walk"] = _summary(
+        tag, "host_steady_graphed_plain_walk", rows_hpw[2:], "graphed")
+    walk_line = {}
+    for path, after, before, want in (
+            ("fused_steady_graphed", rows_g[1:], rows_pw[1:], 2),
+            ("host_steady_graphed", rows_hg[2:], rows_hpw[2:], 1)):
+        read = lambda rows, f: float(np.median([
+            r["stages"]["forest_walk"][f] if f == "elapsed_ms" else
+            r["stages"]["forest_walk"]["counts"].get(f, 0) for r in rows]))
+        walk_line[path] = dict(
+            forest_walk_ms=dict(before=read(before, "elapsed_ms"),
+                                after=read(after, "elapsed_ms")),
+            walk_launches=dict(before=read(before, "walk_launches"),
+                               after=read(after, "walk_launches")))
+        if walk_line[path]["walk_launches"]["after"] != want or \
+                walk_line[path]["walk_launches"]["before"] != 0:
+            fail(f"[{tag}] {path}: walk launches per steady frame "
+                 f"{walk_line[path]['walk_launches']}, want {want} after and"
+                 " 0 before")
+    print(f"[{tag}] forest walk per steady frame, plain eager walk (before)"
+          " and kernel (after), LM steps graphed: " + json.dumps(walk_line),
+          flush=True)
 
     # a process's first track, cold against warmed, each in a process of
     # its own
@@ -3236,11 +3427,19 @@ def phase_trace(scene, lines):
              ("fused_steady_graphed", warmed(scene.tracker()), frames, 1, 5,
               ("fit",), 1),
              ("host_steady_graphed", _host_tracker(scene), xyzs, 2, 5,
-              ("fit",), 1))
+              ("fit",), 1),
+             # the walk before its kernel: every walk plain and eager
+             ("fused_steady_graphed_plain_walk", warmed(scene.tracker()),
+              frames, 1, 5, ("fit",), 1),
+             ("host_steady_graphed_plain_walk", _host_tracker(scene), xyzs,
+              2, 5, ("fit",), 1))
+    walk_launches = {}
     for path, tracker, seq, lo, hi, fits, graphed in paths:
         with contextlib.ExitStack() as stack:
             if not graphed:
                 stack.enter_context(gauss_newton.eager_steps())
+            if path.endswith("_plain_walk"):
+                stack.enter_context(_plain_walks())
             for frame in seq[:lo]:
                 tracker.track(frame)
             with tempfile.TemporaryDirectory() as tmp:
@@ -3278,6 +3477,16 @@ def phase_trace(scene, lines):
             stages_busy_ms=out["stages"], scopes=out["scopes"],
             busy_over_clock_elapsed=share,
             trace_gz_bytes=size, parse_s=round(parse_s, 2))), flush=True)
+        walk_launches[path] = dict(
+            forest_walk=out["scopes"].get("forest_walk", {}).get("launches"),
+            frame=out["launches"])
+    print(f"[{tag}] launches per steady frame (the profiler's runtime and "
+          "driver launch calls), the walk plain and eager (before) and its "
+          "kernel (after): " + json.dumps({
+              path: dict(before=walk_launches[path + "_plain_walk"],
+                         after=walk_launches[path])
+              for path in ("fused_steady_graphed", "host_steady_graphed")}),
+          flush=True)
 
 
 def main():
@@ -3289,23 +3498,39 @@ def main():
 
     # reproducible runs: the scatter-adds take their deterministic kernels
     torch.use_deterministic_algorithms(True)
+    from avatar_tpu_torch.perception import walk_kernel
+
     phase_build()
     rec, search = phase_kernel(dev)
     scene = Scene(dev)
-    paths = {"slice": phase_slice(scene)}
-    paths["batch"] = phase_batch(scene)
-    paths["graph"] = phase_graph(scene)
+    walk_rec = phase_walk(scene)
+    walks = {}
+
+    def walked(name, fn, *a):
+        """Run a phase, keeping its walk kernel launches under ``name``."""
+        before = walk_kernel.LAUNCHES
+        out = fn(*a)
+        walks[name] = walk_kernel.LAUNCHES - before
+        return out
+
+    paths = {"slice": walked("slice", phase_slice, scene)}
+    paths["batch"] = walked("batch", phase_batch, scene)
+    paths["graph"] = walked("graph", phase_graph, scene)
     phase_render(scene)
     paths["probe"] = phase_probe(scene)
-    paths["accuracy"] = phase_accuracy(scene)
-    *host, samples = phase_host(scene)
+    paths["accuracy"] = walked("accuracy", phase_accuracy, scene)
+    *host, samples = walked("host", phase_host, scene)
     paths["host"] = tuple(host)
     paths["library"] = phase_library(scene, samples)
-    phase_train(scene)
-    paths["tools"], paths["optim_tool"] = phase_tools(scene)
-    paths["mesh"] = phase_mesh(scene)
-    *stages, lines = phase_stages(scene)
+    walked("train", phase_train, scene)
+    paths["tools"], paths["optim_tool"] = walked("tools", phase_tools, scene)
+    paths["mesh"] = walked("mesh", phase_mesh, scene)
+    *stages, lines = walked("stages", phase_stages, scene)
     paths["stages"] = tuple(stages)
+    for name in ("slice", "batch", "graph", "accuracy", "host", "train",
+                 "tools", "mesh", "stages"):
+        if walks[name] <= 0:
+            fail(f"the {name} phase walked no forest through the kernel")
     # every recorded launch of each path was held against the plain
     # version, to the last bit
     path_err = max(out[-1] for out in paths.values())
@@ -3335,6 +3560,16 @@ def main():
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "n_rows": 8192,
             "model_slots": 6656 if name == "nn_argmin_ranges" else 7168})
+    r = walk_rec["bucket"]
+    kernels.append({
+        "name": "forest_walk", "route": "cuda",
+        "source": "avatar_tpu_torch/csrc/forest_walk.cu",
+        "replaces": None, "launches": sum(walks.values()),
+        "launches_by_path": walks, "max_abs_err": 0,
+        "ms": r["ms"], "device_ms": r["device_ms"], "host_us": r["host_us"],
+        "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None, "pixels": r["pixels"], "cases": walk_rec})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,11 +44,12 @@ import chip_smoke as cs  # noqa: E402
 
 
 def build_old(src: str):
+    from avatar_tpu_torch import build_cache
     from avatar_tpu_torch.optim import nn_kernel
 
     out = nn_kernel._BUILD / "libnn_argmin_old.so"
     nn_kernel._BUILD.mkdir(exist_ok=True)
-    proc = subprocess.run([nn_kernel._nvcc(), *nn_kernel._NVCC_FLAGS, "-o",
+    proc = subprocess.run([build_cache.nvcc(), *build_cache.NVCC_FLAGS, "-o",
                            str(out), src], capture_output=True, text=True)
     if proc.returncode != 0:
         cs.fail(f"nvcc failed on {src}:\n{proc.stderr}")

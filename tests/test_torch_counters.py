@@ -22,8 +22,9 @@ from avatar_tpu_torch import profiling
 from avatar_tpu_torch.core.model import Avatar
 from avatar_tpu_torch.io.calibration import CameraIntrin
 from avatar_tpu_torch.optim import gauss_newton
+from avatar_tpu_torch.perception import walk_kernel
 from avatar_tpu_torch.perception.partgroups import SMPL24_GROUP_LUT
-from avatar_tpu_torch.perception.rtree import RTree
+from avatar_tpu_torch.perception.rtree import RTree, walk_pixels
 from avatar_tpu_torch.render.renderer import AvatarRenderer
 from avatar_tpu_torch.testing import synthetic_model
 from avatar_tpu_torch.tracking import Tracker, TrackerConfig
@@ -176,14 +177,41 @@ def test_host_read_returns_the_plain_read_and_counts(monkeypatch):
     assert st[profiling.UNSCOPED]["counts"]["reads"] == 1
 
 
+def _walk_launches(stages) -> int:
+    return sum(v["counts"].get("walk_launches", 0) for v in stages.values())
+
+
+def test_cpu_walks_launch_no_kernel(scene):
+    """A walk of CPU tensors takes the plain version: ``walk_pixels`` over
+    a stacked range and ``RTree.predict_best`` leave
+    ``walk_kernel.LAUNCHES`` and the ``walk_launches`` count untouched."""
+    _, _, trees, frames = scene
+    depth = frames[1].astype(np.float32) * 1e-3
+    before = walk_kernel.LAUNCHES
+    with profiling.stage_clock("cpu") as clock:
+        with profiling.scope("forest_walk"):
+            labels = trees[0].predict_best(depth, interval=3)
+            t = trees[0]._tree
+            ys = torch.arange(64)
+            walk_pixels(t, ys, ys, torch.full((64,), 2.0),
+                        torch.ones(64, dtype=torch.bool),
+                        torch.as_tensor(depth.reshape(-1)), (H, W),
+                        trees[0]._max_depth, (0, 0), (W - 1, H - 1))
+    assert (labels != 255).any()
+    assert walk_kernel.LAUNCHES == before
+    assert clock.stages["forest_walk"]["entries"] == 1
+    assert _walk_launches(clock.stages) == 0
+
+
 def test_fused_frames_count_steps_and_reads(scene):
     """A reinit and two steady fused frames under the clock: one ``frame``
     root per track call holding ``upload`` and ``diag_read``, with the
     stages at the paths they had; ``fit``'s ``steps`` equal its
     ``fit/sync`` entries; every flag scope one read per entry, and the
-    steady frames' reads pinned."""
+    steady frames' reads pinned; the CPU's walks launch no kernel."""
     model, intrin, trees, frames = scene
     tracker = _fused(model, intrin, trees)
+    launches = walk_kernel.LAUNCHES
     totals = []
     for i, frame in enumerate(frames):
         with profiling.stage_clock("cpu") as clock:
@@ -201,6 +229,7 @@ def test_fused_frames_count_steps_and_reads(scene):
         for name in SWEEPS:
             assert reads[name] == st[name]["entries"], name
         assert profiling.UNSCOPED not in st
+        assert _walk_launches(st) == 0
         totals.append(sum(reads.values()))
         if i:                     # the tracked window's origin is read
             assert st["forest_walk/sync"]["depth"] == 2
@@ -209,6 +238,7 @@ def test_fused_frames_count_steps_and_reads(scene):
             assert sum(v["counts"]["read_ms"] for v in st.values()
                        if "read_ms" in v["counts"]) <= st["frame"]["host_ms"]
     assert totals[1:] == [22, 22]
+    assert walk_kernel.LAUNCHES == launches
 
 
 def test_host_frames_count_steps_and_reads(scene):
@@ -355,7 +385,10 @@ def test_every_sync_of_a_frame_is_a_counted_read(card_scene, monkeypatch,
     that captures its fits' graphs.  Under ``counted_syncs_only()`` any
     synchronisation outside a counted read raises; a pass in warn mode
     under the clock then holds each call's ``reads`` equal to the
-    synchronisations PyTorch reports for it."""
+    synchronisations PyTorch reports for it, and counts the forest walk's
+    kernel launches of each steady frame: two on the fused tracker (tree 0
+    over the bucket, trees 1-2 over its hard pixels), one on the host
+    tracker."""
     # the clocks' pooled events stay with this test, not with the process
     monkeypatch.setattr(profiling, "_event_pool", [])
     dev = card_scene[0]
@@ -382,5 +415,9 @@ def test_every_sync_of_a_frame_is_a_counted_read(card_scene, monkeypatch,
                         n = _syncs_reported(lambda: out.extend(call()))
                     reads = sum(_reads(clock.stages).values())
                     assert reads == n > 0, (path, i, _reads(clock.stages))
+                    if i and path not in ("batch", "async"):
+                        walks = clock.stages["forest_walk"]["counts"]
+                        assert walks["walk_launches"] == (
+                            1 if path.startswith("host") else 2), path
                 assert all(r.ok for r in out), (path, mode, i)
             torch.cuda.synchronize()

@@ -903,6 +903,35 @@ def test_graphed_fit_equals_eager_fit(cuda, deterministic, case):
 
 
 @pytest.mark.cuda
+def test_no_collection_inside_a_capture(cuda, monkeypatch):
+    """The cyclic collector is off while a fit's LM steps are captured (a
+    collection there that frees a dropped program's graphs destroys them
+    mid-capture, which invalidates the capture) and on again after."""
+    import gc
+
+    from avatar_tpu_torch.optim import gauss_newton as gn
+
+    collecting = []
+    real = torch.cuda.graph.__enter__
+
+    def enter(self):
+        collecting.append(gc.isenabled())
+        return real(self)
+
+    monkeypatch.setattr(torch.cuda.graph, "__enter__", enter)
+    model, ctx, pts, parts, theta0 = _card_fit_inputs(cuda, 1024)
+    programs = {}
+    gn.fit(ctx, model.parents, pts, parts, theta0, 0.03, 0.12, n_steps=3,
+           num_parts=6, robust_per_part=True, freeze_shape=True,
+           programs=programs)
+    torch.cuda.synchronize()
+    (prog,) = programs.values()
+    assert prog.graphs is not None
+    assert collecting == [False, False]
+    assert gc.isenabled()
+
+
+@pytest.mark.cuda
 def test_eager_lm_step_does_not_synchronise(cuda):
     """Both step functions of a fit's program run under
     ``set_sync_debug_mode("error")``: no synchronising copy or read."""

@@ -142,6 +142,53 @@ def test_walk_pixels_leaf_ids(forest, stride):
     assert (got.numpy() >= 0).sum() == fg.sum()
 
 
+def test_walk_pixels_tree_range():
+    """The tree-range form of the plain walk over a stacked forest (the
+    fused tracker's 3-tree r5 forest at stride 3): [t1 - t0, K] leaf ids
+    equal to per-tree walks and to the JAX reference's walk of each tree,
+    for a range from tree 0 and one from tree 1."""
+    from avatar_tpu_torch.tracking_fused import _stack_trees
+
+    paths = [f"data/bench_forest_r5{s}.srtr" for s in ("", "_1", "_2")]
+    trees_j = [jrtree.RTree(p) for p in paths]
+    trees_t = [trtree.RTree(p, device="cpu") for p in paths]
+    stride = 3
+    stacked = _stack_trees([t._tree for t in trees_t], stride)
+    max_depth = max(t._max_depth for t in trees_t)
+    rng = np.random.default_rng(7)
+    Hp, Wp = 64, 48
+    depth = np.where(rng.random((Hp, Wp)) < 0.5,
+                     rng.uniform(1.5, 3.5, (Hp, Wp)), 0.0).astype(np.float32)
+    depth[16:48, 10:38] = rng.uniform(2.4, 2.7, (32, 28))
+    sel = rng.choice(Hp * Wp, 384, replace=False)
+    ys, xs = sel // Wp, sel % Wp
+    z = depth.reshape(-1)[sel]
+    fg = z > 0
+    tl, br = (2, 3), (Wp - 4, Hp - 2)
+    args = (torch.as_tensor(ys), torch.as_tensor(xs), torch.as_tensor(z),
+            torch.as_tensor(fg), torch.as_tensor(depth.reshape(-1)),
+            (Hp, Wp), max_depth, tl, br)
+    for t0, t1 in ((0, 3), (1, 3)):
+        got = trtree.walk_pixels(stacked, *args, trees=(t0, t1))
+        assert got.shape == (t1 - t0, 384) and got.dtype == torch.int32
+        for i, t in enumerate(range(t0, t1)):
+            one = trtree.walk_pixels(stacked, *args, trees=(t, t + 1))
+            np.testing.assert_array_equal(got[i].numpy(), one[0].numpy())
+            tj = trees_j[t]._tree
+            tj = tj._replace(u=tj.u / stride, v=tj.v / stride)
+            ref = jrtree.walk_pixels(tj, jnp.asarray(ys), jnp.asarray(xs),
+                                     jnp.asarray(z), jnp.asarray(fg),
+                                     jnp.asarray(depth.reshape(-1)),
+                                     (Hp, Wp), max_depth, jnp.asarray(tl),
+                                     jnp.asarray(br))
+            np.testing.assert_array_equal(got[i].numpy(), np.asarray(ref))
+        assert ((got.numpy() >= 0) == fg[None]).all()
+    with pytest.raises(ValueError):        # a stacked forest needs a range
+        trtree.walk_pixels(stacked, *args)
+    with pytest.raises(ValueError):        # a single tree takes none
+        trtree.walk_pixels(trees_t[0]._tree, *args, trees=(0, 1))
+
+
 @pytest.mark.parametrize("seed", [3, 4])
 def test_suppress_part_nonmax(seed):
     img = _blobs(seed, n_labels=4)
