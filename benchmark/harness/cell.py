@@ -130,7 +130,7 @@ def set_up(cell: spec.Cell, seed: int, dev):
     if dev.type == "cuda":
         from avatar_tpu_torch.optim import nn_kernel
         nn_kernel.build()
-    scene = make_scene(cfg, cell.traffic, seed, dev)
+    scene = make_scene(cfg, cell.traffic, seed, dev, cell.bench_dir)
     runner = build_program(cfg, scene, dev)
     first_body = next(s.frame for s in scene.schedule if s.body)
     runner.warmup(scene.frames[first_body])

@@ -4,7 +4,8 @@
 the benchmark's model.  ``synthetic_arrays(6, 10, 7)`` is the model the
 committed forests ``data/bench_forest_r5*.srtr`` were trained on (6,624
 vertices, 12,420 faces, 24 joints, 10 shape keys); its pose prior is drawn
-with seed 8.
+with seed 8.  ``tube_arrays`` builds the same kind of body over another
+skeleton, for a configuration's own generator (``harness/models/``).
 """
 
 from __future__ import annotations
@@ -60,18 +61,27 @@ def _smoothstep(t):
 def synthetic_arrays(detail: int = 1, n_keys: int = 10, seed: int = 7) -> dict:
     """Build the raw model arrays.  detail=1 -> ~1.1k verts (tests);
     detail=3 -> ~6.6k verts (bench, SMPL-scale)."""
+    return tube_arrays(_REST_JOINTS, _PARENTS, _BONE_RADIUS,
+                       n_seg=6 + 2 * detail, n_rings=4 + 2 * detail,
+                       n_keys=n_keys, seed=seed)
+
+
+def tube_arrays(rest_joints, parents, bone_radius, n_seg: int, n_rings: int,
+                n_keys: int = 10, seed: int = 7) -> dict:
+    """The arrays of a tube body over any skeleton: ``rest_joints`` [J, 3]
+    m, ``parents`` [J] (-1 at the root), ``bone_radius`` {child joint:
+    radius m}; ``n_seg`` vertices per ring and ``n_rings`` rings per bone.
+    ``synthetic_arrays`` is this over the 24-joint skeleton above."""
     rng = np.random.default_rng(seed)
-    n_seg = 6 + 2 * detail          # vertices per ring
-    n_rings = 4 + 2 * detail        # rings per bone
-    J = 24
-    joints = _REST_JOINTS.copy()
+    J = len(parents)
+    joints = np.array(rest_joints, np.float64)
 
     verts = []
     weights = []
     faces = []
 
     for child in range(1, J):
-        par = int(_PARENTS[child])
+        par = int(parents[child])
         a, b = joints[par], joints[child]
         axis = b - a
         length = np.linalg.norm(axis)
@@ -84,7 +94,7 @@ def synthetic_arrays(detail: int = 1, n_keys: int = 10, seed: int = 7) -> dict:
         e1 = np.cross(axis_n, up)
         e1 /= np.linalg.norm(e1)
         e2 = np.cross(axis_n, e1)
-        radius = _BONE_RADIUS[child]
+        radius = bone_radius[child]
         base = len(verts)
         for ri in range(n_rings):
             t = ri / (n_rings - 1.0)
@@ -149,7 +159,8 @@ def synthetic_arrays(detail: int = 1, n_keys: int = 10, seed: int = 7) -> dict:
             field[:, c] = amp[c] * np.sin(verts @ freq[c] + phase[c, 0])
         shapedirs[:, :, k] = field
 
-    return dict(v_template=verts, parent=_PARENTS.copy(), faces=faces,
+    return dict(v_template=verts,
+                parent=np.array(parents, np.int32), faces=faces,
                 joint_reg=joint_reg, weights=weights, shapedirs=shapedirs,
                 use_jsr=True)
 

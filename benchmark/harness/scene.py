@@ -1,7 +1,8 @@
 """The benchmark's inputs, made from ``--seed`` by its own frozen code: the
-synthetic model, the mix's ground-truth person and its seeded motion, the depth
-frames a camera would deliver, and the order in which a traffic mix hands
-them to the tracker.
+model (the synthetic 24-joint body, or the body a configuration's
+generator makes), the mix's ground-truth person and its seeded motion,
+the depth frames a camera would deliver, and the order in which a traffic
+mix hands them to the tracker.
 
 One generator reads every traffic file.  A mix is a list of ``segments``
 of ``body_frames`` frames of one person, each followed by
@@ -19,12 +20,13 @@ millimetres over a wall at ``background_depth_m``.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import List, NamedTuple
 
 import numpy as np
 import torch
 
-from harness import model_arrays
+from harness import model_arrays, spec
 from reference import rotation
 from reference.lbs import LBSParams, lbs
 from reference.raster import rasterize_batch
@@ -52,10 +54,16 @@ class Scene:
         return self.schedule[k % len(self.schedule)]
 
 
-def model_inputs(config: dict):
+def model_inputs(config: dict, bench_dir: Path = spec.BENCH_DIR):
     """The model's arrays and its pose prior's arrays, as the config
-    names them."""
+    names them: from the generator ``model.generator`` names
+    (``harness/models/<name>.py`` under ``bench_dir``), or, without one,
+    the synthetic 24-joint body of ``model_arrays``."""
     m = config["model"]
+    if "generator" in m:
+        gen = spec.model_generator(m["generator"], bench_dir)
+        arrays = gen.arrays(m)
+        return arrays, gen.prior_arrays(len(arrays["parent"]), m)
     arrays = model_arrays.synthetic_arrays(m["detail"], m["shape_keys"],
                                            m["seed"])
     prior = model_arrays.synthetic_pose_prior_arrays(
@@ -98,10 +106,11 @@ def person(seed: int, arrays, prior, shape_scale: float):
     return w, rots
 
 
-def make_scene(config: dict, traffic: dict, seed: int, device) -> Scene:
+def make_scene(config: dict, traffic: dict, seed: int, device,
+               bench_dir: Path = spec.BENCH_DIR) -> Scene:
     """Render the distinct frames of ``traffic`` at ``seed`` for the camera
     and model of ``config`` on ``device``; the frames end on the host."""
-    arrays, prior = model_inputs(config)
+    arrays, prior = model_inputs(config, bench_dir)
     J = len(arrays["parent"])
     H, W = config["image"]["height"], config["image"]["width"]
     cam = config["camera"]

@@ -1,9 +1,10 @@
 """What a run measures, found by name: the cell in ``BENCHMARK.json``, its
 configuration (``configs/<name>.json``), its traffic mix
-(``traffic/<name>.json``), its limits (``limits/<cell>.json``) and the
-readers of its per-layer metrics (``metrics/<name>.py``).  A later change
-adds a cell, a configuration, a mix or a metric as new files; nothing here
-names one."""
+(``traffic/<name>.json``), its limits (``limits/<cell>.json``), the
+readers of its per-layer metrics (``metrics/<name>.py``) and the generator
+of a configuration's own body model (``harness/models/<name>.py``).  A
+later change adds a cell, a configuration, a mix, a metric or a body model
+as new files; nothing here names one."""
 
 from __future__ import annotations
 
@@ -60,18 +61,32 @@ def load_cell(name: str, bench_json: Path, bench_dir: Path = BENCH_DIR
                 bench_dir)
 
 
-def metric_reader(name: str, bench_dir: Path = BENCH_DIR
-                  ) -> Callable[[object], Optional[float]]:
-    """``read(run)`` of ``metrics/<name>.py``: the metric's value from a
-    traced run, or None where the run holds nothing to read."""
-    path = bench_dir / "metrics" / f"{name}.py"
-    mod_name = "bench_metric_" + name.replace(".", "_").replace("-", "_")
+def _load(path: Path, prefix: str, name: str):
+    """The module in the file ``path``, named ``prefix`` + ``name``."""
+    mod_name = prefix + name.replace(".", "_").replace("-", "_")
     spec = importlib.util.spec_from_file_location(mod_name, path)
     if spec is None:
         raise FileNotFoundError(path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str, bench_dir: Path = BENCH_DIR
+                  ) -> Callable[[object], Optional[float]]:
+    """``read(run)`` of ``metrics/<name>.py``: the metric's value from a
+    traced run, or None where the run holds nothing to read."""
+    return _load(bench_dir / "metrics" / f"{name}.py", "bench_metric_",
+                 name).read
+
+
+def model_generator(name: str, bench_dir: Path = BENCH_DIR):
+    """The body model generator ``harness/models/<name>.py``, which a
+    configuration names as ``model.generator``: ``arrays(model)`` gives the
+    arrays ``AvatarModel(arrays=...)`` takes, ``prior_arrays(n_joints,
+    model)`` the pose prior's (weights [C], means [C, D], covs [C, D, D])."""
+    return _load(bench_dir / "harness" / "models" / f"{name}.py",
+                 "bench_model_", name)
 
 
 def read_metrics(metrics: List[dict], run, bench_dir: Path = BENCH_DIR

@@ -17,7 +17,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-# a configuration's forest paths are relative to the root of the checkout
+from reference.formats import read_partmap
+
+# a configuration's forest and part map paths are relative to the root of
+# the checkout
 ROOT = Path(__file__).resolve().parent.parent.parent
 
 # the per-frame tracking state of each class, which the reference takes
@@ -48,7 +51,11 @@ def _tracker_config(cls, config: dict):
 
 def _build(mods, config: dict, scene, device):
     """A tracker of ``config`` from the classes in ``mods`` (the port's or
-    the reference's), with its background set."""
+    the reference's), with its background set.  ``forest_partmap`` (a
+    ``.partmap`` relative to the root of the checkout) maps the model's
+    joints onto the forest's parts for every forest of the configuration,
+    in place of each forest's own ``<forest>.partmap``;
+    ``forest_partmap_type`` then sets the type alone."""
     dev = torch.device(device)
     model = mods["AvatarModel"](
         arrays=scene.arrays, dtype=torch.float32, device=dev,
@@ -56,6 +63,19 @@ def _build(mods, config: dict, scene, device):
                                            device=dev))
     trees = [mods["RTree"](str(ROOT / path), device=dev)
              for path in config["forest"]]
+    if "forest_partmap" in config:
+        part_map, n_parts, partmap_type = read_partmap(
+            str(ROOT / config["forest_partmap"]))
+        if len(part_map) != len(scene.arrays["parent"]):
+            raise ValueError(f"{config['forest_partmap']} maps "
+                             f"{len(part_map)} joints; the model has "
+                             f"{len(scene.arrays['parent'])}")
+        for t in trees:
+            if n_parts != t.num_parts:
+                raise ValueError(f"{config['forest_partmap']} maps onto "
+                                 f"{n_parts} parts; a forest has "
+                                 f"{t.num_parts}")
+            t.part_map, t.partmap_type = list(part_map), partmap_type
     for t in trees:
         if "forest_partmap_type" in config:
             t.partmap_type = config["forest_partmap_type"]

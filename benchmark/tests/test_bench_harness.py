@@ -5,13 +5,15 @@ comparison that decides ``correct`` failing on planted faults."""
 import json
 import time
 
+import numpy as np
 import pytest
 import torch
 
 import run
 from harness import check, spec
 from harness.cell import TraceRun, run_cell
-from harness.trackers import Output
+from harness.scene import make_scene
+from harness.trackers import Output, build_reference
 
 SEED = 2 ** 31 + 77
 
@@ -63,6 +65,121 @@ def test_added_files_are_found_by_name(bench_copy):
 
     cell, result = _run(bench_copy, "extra_cell", trace=True)
     assert result["metrics"]["extra_frames"]["value"] >= 1
+
+
+# A body model's generator as a configuration brings it: the tube body
+# with three finger joints under each hand, 30 joints in all.
+_TOY_BODY = '''"""The tube body with three finger joints under each hand."""
+import numpy as np
+
+from harness import model_arrays as ma
+
+
+def _skeleton():
+    joints, parents = list(ma._REST_JOINTS), list(ma._PARENTS)
+    radius = dict(ma._BONE_RADIUS)
+    for hand, side in ((22, 1.0), (23, -1.0)):
+        parent = hand
+        for k in range(1, 4):
+            joints.append(ma._REST_JOINTS[hand] + [side * 0.035 * k, 0, 0])
+            parents.append(parent)
+            parent = len(joints) - 1
+            radius[parent] = 0.012
+    return np.array(joints), np.array(parents, np.int32), radius
+
+
+def arrays(model):
+    return ma.tube_arrays(*_skeleton(), n_seg=model["ring_vertices"],
+                          n_rings=model["rings"],
+                          n_keys=model["shape_keys"], seed=model["seed"])
+
+
+def prior_arrays(n_joints, model):
+    return ma.synthetic_pose_prior_arrays(n_joints, seed=model["prior_seed"])
+'''
+
+
+def _toy_partmap(n_joints: int, n_parts: int = 24) -> str:
+    """Joints 0-23 onto the forest's parts 0-23, each hand's fingers onto
+    its hand's part (22, 23); modulo ``n_parts``."""
+    part = [(min(j, 22) if j < 27 else 23) % n_parts
+            for j in range(n_joints)]
+    return "\n".join(
+        ["partmap disjoint", f"src {n_joints}",
+         " ".join(f"joint{j}" for j in range(n_joints)), f"dest {n_parts}",
+         " ".join(f"part{p}" for p in range(n_parts))] +
+        [f"joint{j} part{p}" for j, p in enumerate(part)]) + "\n"
+
+
+def test_a_new_body_is_found_by_name(bench_copy):
+    """A body with more joints than the forest has parts and more than
+    2^14 faces, brought as new files only: its generator, a joint-to-part
+    map and configurations naming both.  The scene renders it, the
+    reference's fused and host trackers track it, and a map that does not
+    fit the model or the forest is refused."""
+    models = bench_copy / "harness" / "models"
+    models.mkdir(parents=True)
+    (models / "toy_hands.py").write_text(_TOY_BODY)
+    partmap = bench_copy / "configs" / "toy_hands.partmap"
+    partmap.write_text(_toy_partmap(30))
+    b = json.loads((bench_copy / "BENCHMARK.json").read_text())
+    for kind in ("fused", "host"):
+        cfg = json.loads((bench_copy / "configs" /
+                          f"tiny_{kind}.json").read_text())
+        # 12 rings of 32 vertices a bone: faces about as long as they are
+        # wide, so that their samples fit the scene's budget
+        cfg["model"] = dict(generator="toy_hands", rings=12,
+                            ring_vertices=32, shape_keys=10, seed=7,
+                            prior_seed=8)
+        # absolute, so that joined to the checkout's root it stays itself
+        cfg["forest_partmap"] = str(partmap)
+        if kind == "fused":
+            # fewer LM steps: the plain search over 11,136 vertices is slow
+            # on the CPU
+            cfg["tracker_config"].update(initial_icp_iters=2,
+                                         reinit_icp_iters=2,
+                                         frame_icp_iters=1)
+        (bench_copy / "configs" / f"toy_{kind}.json").write_text(
+            json.dumps(cfg))
+        (bench_copy / "limits" / f"toy_{kind}_steady.json").write_text(
+            (bench_copy / "limits" / f"tiny_{kind}_steady.json").read_text())
+        b["configs"].append(dict(name=f"toy_{kind}", source="a test",
+                                 file=f"configs/toy_{kind}.json", reduced=[],
+                                 why="a test"))
+        b["workloads"].append(dict(name=f"toy_{kind}_steady",
+                                   config=f"toy_{kind}",
+                                   traffic="tiny_steady_walk", chips=1,
+                                   why="a test"))
+    (bench_copy / "BENCHMARK.json").write_text(json.dumps(b))
+
+    for kind, partmap_type in (("fused", 0), ("host", 1)):
+        cell = spec.load_cell(f"toy_{kind}_steady",
+                              bench_copy / "BENCHMARK.json", bench_copy)
+        # make_scene raises where a frame's samples overflow the renderer
+        scene = make_scene(cell.config, cell.traffic, SEED, "cpu",
+                           bench_copy)
+        assert len(scene.arrays["parent"]) == 30
+        assert len(scene.arrays["faces"]) > 2 ** 14
+        bg_mm = int(cell.config["background_depth_m"] * 1000)
+        assert all((f < bg_mm).sum() > 500 for f in scene.frames)
+        reference = build_reference(cell.config, scene, "cpu")
+        tree = reference.tracker.rtree
+        assert tree.part_map == [min(j, 22) if j < 27 else 23
+                                 for j in range(30)]
+        # the configuration's forest_partmap_type overrides the map's type
+        assert tree.partmap_type == partmap_type
+        for k in range(3):
+            out = reference.feed(scene.frames[scene.slot(k).frame])
+            assert out.ok, (kind, k)
+            assert out.joints.shape == (30, 3)
+            assert np.isfinite(out.joints).all()
+
+    # a map onto other parts than the forest's, or of other joints than the
+    # model's, is refused
+    for n_joints, n_parts in ((30, 14), (31, 24)):
+        partmap.write_text(_toy_partmap(n_joints, n_parts))
+        with pytest.raises(ValueError, match="maps"):
+            build_reference(cell.config, scene, "cpu")
 
 
 def test_forbidden_modules_by_whole_top_level_name():

@@ -1,6 +1,8 @@
 """The benchmark's inputs: the frozen model, the generator, the frames each
 side gets, and the yardstick's counts."""
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -9,6 +11,7 @@ import roofline
 from harness import check, model_arrays, spec
 from harness.cell import window
 from harness.scene import make_scene
+from reference import raster
 
 
 def test_frozen_model_arrays_equal_the_port_s():
@@ -54,6 +57,105 @@ def test_generator_is_deterministic_per_seed(bench_copy, workload):
             t["segments"] * t["empty_frames"]
     else:
         assert len(a.schedule) == 2 * period - 2
+
+
+def _digest(arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+# sha256 of each cell's frames and schedule at seed 2^31 + 77, from the
+# harness as it was before a configuration could name its own body model
+@pytest.mark.parametrize("workload,digest", [
+    ("tiny_fused_steady",
+     "f498291bddfeb05ebdc29e954382a65183009f79b37121c3e621ac6370a5f735"),
+    ("tiny_host_steady",
+     "f498291bddfeb05ebdc29e954382a65183009f79b37121c3e621ac6370a5f735"),
+    ("tiny_fused_reentry",
+     "1551c002f0b5c6a23441ed2564a625aa7176691cb3b1d4370c36f844dea8d862"),
+])
+def test_frames_and_schedule_stay_the_same(bench_copy, workload, digest):
+    cell = spec.load_cell(workload, bench_copy / "BENCHMARK.json",
+                          bench_copy)
+    scene = make_scene(cell.config, cell.traffic, 2 ** 31 + 77, "cpu")
+    schedule = repr([tuple(s) for s in scene.schedule]).encode()
+    assert _digest(scene.frames + [np.frombuffer(schedule, np.uint8)]) \
+        == digest
+
+
+def test_raster_keys_up_to_2_14_faces_are_the_int32_keys():
+    g = torch.Generator().manual_seed(3)
+    zq = torch.randint(1, 1 << raster.Z_BITS, (4096,), generator=g,
+                       dtype=torch.int32)
+    for n_faces in (100, 1 << 14):
+        face = torch.randint(0, n_faces, (4096,), generator=g)
+        keys, bits = raster.fragment_keys(zq, face, n_faces)
+        assert bits == 14
+        assert torch.equal(keys, (zq << 14) | (face.to(torch.int32) &
+                                               ((1 << 14) - 1)))
+    keys, bits = raster.fragment_keys(zq, face, (1 << 14) + 1)
+    assert bits == 15
+
+
+def test_raster_outputs_up_to_2_14_faces_stay_the_same():
+    """Every output of a raster of 60 random faces, to the bit, as the
+    int32 key gave them before the wider key."""
+    rng = np.random.default_rng(5)
+    P, F, H, W = 90, 60, 48, 64
+    proj = torch.as_tensor(rng.uniform([-5, -5], [W + 5, H + 5], (2, P, 2)),
+                           dtype=torch.float32)
+    z = torch.as_tensor(rng.uniform(1.0, 5.0, (2, P)), dtype=torch.float32)
+    faces = torch.as_tensor(np.stack([rng.permutation(P)[:3]
+                                      for _ in range(F)]), dtype=torch.int32)
+    r = raster.rasterize_batch(proj, z, faces, H, W, 200000)
+    assert int((r.fid >= 0).sum()) == 5795
+    assert _digest(t.numpy() for t in r) == \
+        "53a21da0eacd887d33b250993d7627dfc235ee5bcb550353d373d7f0c96608f1"
+
+
+def test_raster_past_2_14_faces_is_a_brute_force_zbuffer():
+    """2^14 small faces and 300 large ones over a 32x24 image: the winning
+    face of every pixel is that of a per-pixel search over every face, by
+    the 17-bit depth and then the lowest face id; faces numbered above
+    2^14 win some pixels."""
+    rng = np.random.default_rng(11)
+    H, W, n_small, n_large = 24, 32, 1 << 14, 300
+    centre = np.concatenate([rng.uniform(0, W, (n_small + n_large, 1)),
+                             rng.uniform(0, H, (n_small + n_large, 1))], 1)
+    size = np.r_[np.full(n_small, 2.0), np.full(n_large, 9.0)][:, None, None]
+    angle = rng.uniform(0, 2 * np.pi, (n_small + n_large, 1)) + \
+        np.array([0.0, 2.1, 4.2])
+    corners = centre[:, None] + size * np.stack([np.cos(angle),
+                                                 np.sin(angle)], -1)
+    F = n_small + n_large
+    proj = torch.as_tensor(corners.reshape(1, 3 * F, 2), dtype=torch.float32)
+    z = torch.as_tensor(rng.uniform(1.0, 6.0, (1, 3 * F)),
+                        dtype=torch.float32)
+    faces = torch.arange(3 * F, dtype=torch.int32).reshape(F, 3)
+    r = raster.rasterize_batch(proj, z, faces, H, W, 600000)
+    assert int(r.n_dropped[0]) == 0
+
+    yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float32),
+                            torch.arange(W, dtype=torch.float32),
+                            indexing="ij")
+    px, py = xx.reshape(-1, 1), yy.reshape(-1, 1)              # [HW, 1]
+    a, b, c = (proj[0, faces[:, k].long()][None] for k in range(3))
+    w1, w2, w3 = raster._barycentric(px, py, a, b, c)          # [HW, F]
+    za, zb, zc = (z[0, faces[:, k].long()][None] for k in range(3))
+    zi = w1 * za + w2 * zb + w3 * zc
+    inside = (w1 >= -1e-6) & (w2 >= -1e-6) & (w3 >= -1e-6) & (zi > 0)
+    zq = torch.clamp(zi / raster.Z_MAX_DEFAULT * float(1 << raster.Z_BITS),
+                     1.0, float((1 << raster.Z_BITS) - 1)).to(torch.int64)
+    key = torch.where(inside, zq * F + torch.arange(F), torch.iinfo(
+        torch.int64).max)
+    best = key.min(1).values
+    want = torch.where(best < torch.iinfo(torch.int64).max, best % F, -1)
+    got = r.fid[0].reshape(-1).long()
+    assert torch.equal(got, want)
+    assert (got >= 1 << 14).sum() > 20 and (
+        (got >= 0) & (got < 1 << 14)).sum() > 20
 
 
 class _Spy:
