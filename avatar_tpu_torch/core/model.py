@@ -164,9 +164,32 @@ def _load_model_dir(model_path: str,
     return _load_legacy(model_path, limit_one_joint_per_point)
 
 
+# SMPL-X (Pavlakos et al., CVPR 2019): 55 joints; ``shapedirs`` holds 300
+# shape then 100 expression directions (v1.1) or 10 then 10 (v1.0), of
+# which the ``smplx`` layer takes its defaults, 10 shape and 10 expression
+SMPLX_NUM_JOINTS = 55
+_SMPLX_EXPRESSION_START = {400: 300, 20: 10}
+_SMPLX_NUM_BETAS = 10
+_SMPLX_NUM_EXPRESSION = 10
+
+
+def smplx_shape_columns(n_columns: int) -> np.ndarray:
+    """The columns of an SMPL-X ``shapedirs`` of ``n_columns`` (400 or 20)
+    that the ``smplx`` layer takes by default: the first 10 shape columns,
+    then 10 expression columns from 300 (400 columns) or from 10 (20
+    columns)."""
+    start = _SMPLX_EXPRESSION_START[n_columns]
+    return np.r_[np.arange(_SMPLX_NUM_BETAS),
+                 start + np.arange(_SMPLX_NUM_EXPRESSION)]
+
+
 def _load_npz(npz_path: str) -> dict:
     """Load the SMPL ``model.npz``: v_template [N,3], kintree_table [2,J],
-    f [F,3], J_regressor [J,N], weights [N,J], shapedirs [N,3,K]."""
+    f [F,3], J_regressor [J,N], weights [N,J], shapedirs [N,3,K].  An
+    SMPL-X file (55 joints, ``shapedirs`` of 400 or 20 columns) keeps the
+    shape and expression columns ``smplx_shape_columns`` names, as shape
+    keys; its pose correctives, hand PCA, landmarks and texture
+    coordinates are not read."""
     with np.load(npz_path, allow_pickle=False) as npz:
         kintree = np.asarray(npz["kintree_table"])
         parent = kintree[0].astype(np.int64)
@@ -174,12 +197,16 @@ def _load_npz(npz_path: str) -> dict:
         parent = np.where(parent > kintree.shape[1], -1, parent).astype(
             np.int32)
         parent[0] = -1
+        shapedirs = np.asarray(npz["shapedirs"], np.float64)
+        if kintree.shape[1] == SMPLX_NUM_JOINTS and shapedirs.ndim == 3 \
+                and shapedirs.shape[2] in _SMPLX_EXPRESSION_START:
+            shapedirs = shapedirs[:, :, smplx_shape_columns(
+                shapedirs.shape[2])]
         return dict(v_template=np.asarray(npz["v_template"], np.float64),
                     parent=parent, faces=np.asarray(npz["f"], np.int32),
                     joint_reg=np.asarray(npz["J_regressor"], np.float64),
                     weights=np.asarray(npz["weights"], np.float64),
-                    shapedirs=np.asarray(npz["shapedirs"], np.float64),
-                    use_jsr=True)
+                    shapedirs=shapedirs, use_jsr=True)
 
 
 def _read_ascii_pcd(path: str) -> np.ndarray:

@@ -332,16 +332,21 @@ class _Program:
 
     def run(self, relinearize: bool, graphed: bool) -> Tuple[bool, bool]:
         """One LM step; returns its (accept, stop) flags, the host's one
-        read of the step."""
+        read of the step.  A re-linearizing step is also the span ``lin``:
+        inside ``step`` where graphed; where eager, around the step
+        function, its parts keeping their paths (``scope(nests=False)``)."""
         name = "lin" if relinearize else "step"
         if graphed:
             if self.graphs is None:
                 self.capture()
-            with scope("step"):
+            with scope("step"), (scope("lin") if relinearize
+                                 else contextlib.nullcontext()):
                 self.graphs[name].replay()
                 nn_kernel.count_replay(self.launches[name])
         else:
-            self.fns[name]()
+            with (scope("lin", nests=False) if relinearize
+                  else contextlib.nullcontext()):
+                self.fns[name]()
         with scope("sync"), host_sync():
             accept, stop = self.b.flags.tolist()
         return accept, stop

@@ -20,6 +20,7 @@ import torch
 
 from avatar_tpu_torch.optim.gauss_newton import (FitContext, PriorData, Theta,
                                                  fit)
+from avatar_tpu_torch.perception.partgroups import joint_parts
 from avatar_tpu_torch.profiling import host_read, to_device
 
 
@@ -54,14 +55,11 @@ class AvatarOptimizer:
         self.huber_k = 1.5
         self.robust_per_part = False
 
-        if part_map is None or len(part_map) == 0:
-            part_map_arr = np.arange(model.num_joints(), dtype=np.int32)
-        else:
-            part_map_arr = np.asarray(part_map, np.int32)
-        self.part_map = part_map_arr
+        self.part_map = joint_parts(part_map, model.num_joints(),
+                                    self.num_parts)
         # body part of each vertex = part_map[main assigned joint]
         # (reference AvatarOptimizer.cpp:1307-1311)
-        model_part = part_map_arr[model.main_joint]
+        model_part = self.part_map[model.main_joint]
 
         if model.pose_prior is None:
             raise ValueError("AvatarOptimizer requires a model pose prior")

@@ -26,6 +26,15 @@ SMPL24_GROUP_NAMES = (
     "r_hand")
 
 
+# SMPL-X's 55 joints (Pavlakos et al., CVPR 2019) onto the 24 SMPL parts a
+# forest labels: SMPL's joints 0-21 onto themselves, the jaw (22) and eyes
+# (23, 24) onto the head (15), each hand's 15 finger joints (left 25-39,
+# right 40-54) onto its hand part (22, 23).  ``data/smplx55_smpl24.partmap``
+# is the same map as a file.
+SMPLX55_TO_SMPL24 = np.array(
+    list(range(22)) + [15, 15, 15] + [22] * 15 + [23] * 15, np.int32)
+
+
 # Limb-recovery chain roots (tracking resilience, SURVEY §5.3): for each
 # recoverable extremity group, the joint whose rotation re-aims the limb —
 # calves re-aim at the hip, feet at the knee, forearms at the shoulder.
@@ -56,3 +65,20 @@ def fold_leaf_data(leaf_data: np.ndarray, lut: np.ndarray,
     for p in range(P):
         out[:, lut[p]] += leaf_data[:, p]
     return out
+
+
+def joint_parts(part_map, n_joints: int, n_parts: int) -> np.ndarray:
+    """[n_joints] int32: the part of each of the model's joints, from a
+    forest's joint-to-part map (``RTree.part_map``; empty: joint j is part
+    j).  A ``ValueError`` that names the counts where the map does not
+    cover the model's joints or sends one outside the forest's parts (an
+    SMPL-X body on the 24-part forests needs ``SMPLX55_TO_SMPL24``)."""
+    pm = (np.arange(n_joints, dtype=np.int32) if part_map is None or
+          len(part_map) == 0 else np.asarray(part_map, np.int32))
+    if len(pm) != n_joints:
+        raise ValueError(f"the part map covers {len(pm)} joints; the model "
+                         f"has {n_joints}")
+    if pm.min() < 0 or pm.max() >= n_parts:
+        raise ValueError(f"the part map sends joints to parts up to "
+                         f"{pm.max()}; the forest has {n_parts} parts")
+    return pm

@@ -22,6 +22,9 @@ The tracker's stages and the parts of an LM step are marked with
 holds the whole call: the upload, the stages, the diagnostics read and the
 state update.  On the card an LM step is the replay of a captured
 CUDA graph, marked as one scope, ``step``, beside the host read ``sync``;
+a step that re-linearizes is also the span ``lin`` (``fit/step/lin``;
+``fit/lin`` where the steps run uncaptured, its parts keeping their
+paths), whose entries count the linearizations;
 the parts of a step show only in a run with ``gauss_newton.eager_steps()``,
 and a scope opened while a graph is being captured records no event.  A
 scope always enters
@@ -135,16 +138,18 @@ class StageClock:
         ev.record()
         return ev
 
-    def _enter(self, name: str) -> list:
+    def _enter(self, name: str, nests: bool = True) -> list:
         path = (self._open[-1][0] if self._open else []) + [name]
         rec = [path, self._mark(), None, time.perf_counter(), 0.0, None]
-        self._open.append(rec)
+        if nests:
+            self._open.append(rec)
         return rec
 
-    def _exit(self, rec: list) -> None:
+    def _exit(self, rec: list, nests: bool = True) -> None:
         rec[2] = self._mark()
         rec[4] = time.perf_counter()
-        self._open.pop()
+        if nests:
+            self._open.pop()
         self._records.append(rec)
 
     def _count(self, name: str, k) -> None:
@@ -190,28 +195,37 @@ def _capturing() -> bool:
 
 
 class scope:
-    """Mark a stage: ``with scope("fit"): ...``.  Scopes nest."""
+    """Mark a stage: ``with scope("fit"): ...``.  Scopes nest.  With
+    ``nests=False`` the scope is a span the stage clock times and counts
+    at its own path, under the scope open around it, while the scopes
+    inside it keep their paths (and counts made inside it go to that
+    outer scope); it enters no ``record_function``, so the profiler's
+    paths do not change either (``gauss_newton``'s eager ``lin`` span)."""
 
-    __slots__ = ("name", "_fn", "_clock", "_rec")
+    __slots__ = ("name", "nests", "_fn", "_clock", "_rec")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, nests: bool = True):
         self.name = name
+        self.nests = nests
 
     def __enter__(self):
-        self._fn = torch.profiler.record_function(self.name)
-        self._fn.__enter__()
+        self._fn = None
+        if self.nests:
+            self._fn = torch.profiler.record_function(self.name)
+            self._fn.__enter__()
         self._clock = getattr(_active, "clock", None)
         if self._clock is not None and self._clock.on_card and \
                 _capturing():
             self._clock = None      # an event would be captured, not timed
         if self._clock is not None:
-            self._rec = self._clock._enter(self.name)
+            self._rec = self._clock._enter(self.name, self.nests)
         return self
 
     def __exit__(self, *exc):
         if self._clock is not None:
-            self._clock._exit(self._rec)
-        self._fn.__exit__(*exc)
+            self._clock._exit(self._rec, self.nests)
+        if self._fn is not None:
+            self._fn.__exit__(*exc)
         return False
 
 

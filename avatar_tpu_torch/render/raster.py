@@ -7,13 +7,16 @@ Static shapes, as in the reference:
   2. a fixed sample budget S is spread over the faces by an exclusive scan
      of bbox areas — slot s maps to (face, dx, dy) with one searchsorted
      and a div/mod;
-  3. each slot tests barycentric coverage of its pixel and scatter-mins an
-     int32 key (quantized depth << 14 | face id) into the flat image.
+  3. each slot tests barycentric coverage of its pixel and scatter-mins a
+     key (quantized depth << face-id bits | face id) into the flat image.
 
-17 bits of depth over [0, z_max] rank the fragments and 14 bits of face
-id name the winner; a per-pixel post pass recomputes the exact
-interpolated depth and barycentrics from the winning face.  The reference
-aliases face ids above 2^14 silently; here ``rasterize`` raises instead.
+17 bits of depth over [0, z_max] rank the fragments and the face id names
+the winner; a per-pixel post pass recomputes the exact interpolated depth
+and barycentrics from the winning face.  The key is int64, with 14 bits
+of face id as the reference's int32 key has, or as many as the face
+count needs: up to 2^14 faces its values, and so the fragments' order,
+are the reference's.  The reference aliases face ids above 2^14
+silently; here they keep their own bits.
 """
 
 from __future__ import annotations
@@ -23,10 +26,8 @@ from typing import NamedTuple, Optional
 import torch
 
 FID_BITS = 14
-FID_MASK = (1 << FID_BITS) - 1
 Z_BITS = 17
 Z_MAX_DEFAULT = 20.0  # matches RTree BACKGROUND_DEPTH (RTree.cpp:325)
-_INT_MAX = 2 ** 31 - 1
 
 
 class RasterOutput(NamedTuple):
@@ -69,6 +70,16 @@ def _per_slot(t: torch.Tensor, face_of: torch.Tensor) -> torch.Tensor:
     return torch.gather(t, 1, idx).reshape(face_of.shape)
 
 
+def fragment_keys(zq: torch.Tensor, face_of: torch.Tensor, n_faces: int):
+    """The scatter-min's int64 keys ``zq << fid_bits | face`` of fragments
+    of quantized depth ``zq`` (``Z_BITS`` bits) on faces ``face_of``, and
+    ``fid_bits``: 14, as the reference's int32 key has, or as many as
+    ``n_faces`` needs.  The keys order fragments by depth, then by face
+    id; up to 2^14 faces their values are the reference's int32 keys."""
+    fid_bits = max(FID_BITS, (n_faces - 1).bit_length())
+    return (zq.long() << fid_bits) | face_of.long(), fid_bits
+
+
 def rasterize_batch(proj: torch.Tensor, z: torch.Tensor, faces: torch.Tensor,
                     height: int, width: int, budget: int,
                     z_max: float = Z_MAX_DEFAULT,
@@ -77,8 +88,8 @@ def rasterize_batch(proj: torch.Tensor, z: torch.Tensor, faces: torch.Tensor,
     """Exact z-buffer raster of B poses of one triangle mesh.
 
     proj [B, P, 2] projected vertices (pixels); z [B, P] camera-space
-    depths (> 0 in front of the camera); faces [F, 3] (F <= 2^14, the
-    int32 pack's face-id field); ``budget`` the sample budget S of EACH
+    depths (> 0 in front of the camera); faces [F, 3] (F < 2^31);
+    ``budget`` the sample budget S of EACH
     frame — choose it >= the sum of face bbox areas, overflowing slots are
     dropped and counted in ``n_dropped``; face_valid optional [B, F] bool
     mask of faces to draw.  Every field of the result has a leading B.
@@ -89,9 +100,8 @@ def rasterize_batch(proj: torch.Tensor, z: torch.Tensor, faces: torch.Tensor,
     it.
     """
     F = faces.shape[0]
-    if F > (1 << FID_BITS):
-        raise ValueError(f"{F} faces: the z-buffer key holds face ids below "
-                         f"2^{FID_BITS} = {1 << FID_BITS}")
+    if F >= 1 << 31:
+        raise ValueError(f"{F} faces: face ids are int32")
     dev = proj.device
     B = proj.shape[0]
     faces = faces.long()
@@ -152,20 +162,22 @@ def rasterize_batch(proj: torch.Tensor, z: torch.Tensor, faces: torch.Tensor,
     # clip then truncate toward zero, as astype(int32) does
     zq = torch.clamp(zi / z_max * float(1 << Z_BITS), 1.0,
                      float((1 << Z_BITS) - 1)).to(torch.int32)
-    packed = (zq << FID_BITS) | (face_of.to(torch.int32) & FID_MASK)
+    packed, fid_bits = fragment_keys(zq, face_of, F)
+    key_max = torch.iinfo(packed.dtype).max
 
     # one scatter-min for the batch: frame b owns pixels
     # [b * (HW + 1), (b + 1) * (HW + 1)), the last one for rejected slots
     HW = height * width
     flat_pix = torch.where(inside, py * width + px, HW).long() + (
         torch.arange(B, device=dev)[:, None] * (HW + 1))
-    zbuf = torch.full((B * (HW + 1),), _INT_MAX, dtype=torch.int32,
+    zbuf = torch.full((B * (HW + 1),), key_max, dtype=packed.dtype,
                       device=dev).scatter_reduce(
         0, flat_pix.reshape(-1), packed.reshape(-1), "amin",
         include_self=True).reshape(B, HW + 1)[:, :-1]
 
-    hit = zbuf != _INT_MAX
-    fid = torch.where(hit, zbuf & FID_MASK, -1).reshape(B, height, width)
+    hit = zbuf != key_max
+    fid = torch.where(hit, zbuf & ((1 << fid_bits) - 1), -1).to(
+        torch.int32).reshape(B, height, width)
 
     # post pass: exact interpolated depth and bary of the winning face
     yy = torch.arange(height, dtype=proj.dtype, device=dev)[:, None]

@@ -22,6 +22,27 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
                          "is no silent CPU fallback)")
 
 
+def add_partmap_arg(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--partmap", default="",
+                    help="a .partmap of the model's joints onto the "
+                         "forest's parts, in place of the forest's own "
+                         "<forest>.partmap (an SMPL-X model on the 24-part "
+                         "forests: data/smplx55_smpl24.partmap)")
+
+
+def set_partmap(tree, path: str) -> None:
+    """Set the joint-to-part map and its type of the ``.partmap`` at
+    ``path`` on the forest ``tree``; a map onto another number of parts
+    than the forest has raises a ``ValueError``."""
+    from avatar_tpu_torch.io.formats import read_partmap
+
+    part_map, n_parts, partmap_type = read_partmap(path)
+    if n_parts != tree.num_parts:
+        raise ValueError(f"{path} maps onto {n_parts} parts; the forest "
+                         f"has {tree.num_parts}")
+    tree.part_map, tree.partmap_type = list(part_map), partmap_type
+
+
 def load_model(args) -> AvatarModel:
     if args.synthetic_model:
         from avatar_tpu_torch.testing import synthetic_model

@@ -23,7 +23,8 @@ import numpy as np
 
 from avatar_tpu_torch.io.dataset import Dataset
 from avatar_tpu_torch.perception.rtree import RTree
-from avatar_tpu_torch.tools.common import add_model_args, load_model
+from avatar_tpu_torch.tools.common import (add_model_args, add_partmap_arg,
+                                           load_model, set_partmap)
 from avatar_tpu_torch.tracking import Tracker, TrackerConfig
 
 def build_parser():
@@ -73,6 +74,7 @@ def build_parser():
                     help="offline max-throughput mode (fused tracker): "
                          "track B frames per batch (track_batch); prints "
                          "fps, skips per-frame overlays")
+    add_partmap_arg(ap)
     add_model_args(ap)
     return ap
 
@@ -83,6 +85,8 @@ def main(argv=None):
     model = load_model(args)
 
     rtree = RTree(args.rtree, device=args.device) if args.rtree else None
+    if args.partmap and rtree is not None:
+        set_partmap(rtree, args.partmap)
 
     try:
         bg = ds.xyz(args.background)

@@ -21,7 +21,8 @@ import time
 
 from avatar_tpu_torch.io.camera import open_camera
 from avatar_tpu_torch.perception.rtree import RTree
-from avatar_tpu_torch.tools.common import add_model_args, load_model
+from avatar_tpu_torch.tools.common import (add_model_args, add_partmap_arg,
+                                           load_model, set_partmap)
 from avatar_tpu_torch.tracking import Tracker, TrackerConfig
 
 
@@ -126,6 +127,7 @@ def build_parser():
                          "(space = unpause + capture background, b = "
                          "recapture, q = quit; live-demo.cpp:491-529); "
                          "reads keys from the display window")
+    add_partmap_arg(ap)
     add_model_args(ap)
     return ap
 
@@ -144,6 +146,8 @@ def main(argv=None, key_source=None, on_frame=None):
     intrin = cam.intrinsics()
     H, W = cam.image_size()
     rtree = RTree(args.rtree, device=args.device) if args.rtree else None
+    if args.partmap and rtree is not None:
+        set_partmap(rtree, args.partmap)
 
     part_groups = None
     if args.part_groups:

@@ -63,7 +63,8 @@ from avatar_tpu_torch.perception import cc
 from avatar_tpu_torch.perception.bgsub import _foreground_mask
 from avatar_tpu_torch.perception.partgroups import (SMPL24_GROUP_CHAIN_ROOT,
                                                     fold_leaf_data,
-                                                    group_label_lut)
+                                                    group_label_lut,
+                                                    joint_parts)
 from avatar_tpu_torch.perception.rtree import (TreeTensors,
                                                suppress_part_nonmax,
                                                walk_pixels)
@@ -667,9 +668,8 @@ class FusedTracker:
         tt = lambda a, dtype=dt: torch.as_tensor(a, dtype=dtype, device=dev)
 
         num_parts = rtree.num_parts if rtree is not None else model.num_joints()
-        part_map = (np.asarray(rtree.part_map, np.int32)
-                    if rtree is not None and len(rtree.part_map)
-                    else np.arange(model.num_joints(), dtype=np.int32))
+        part_map = joint_parts(rtree.part_map if rtree is not None else None,
+                               model.num_joints(), num_parts)
         model_part = part_map[model.main_joint]
         # group-level correspondence: fold model parts, forest leaves and
         # oracle masks through the group LUT
@@ -681,6 +681,11 @@ class FusedTracker:
             tree_grouped = (rtree is not None and np.array_equal(
                 part_map[:len(self._glut)], self._glut))
             if not tree_grouped:
+                if part_map.max() >= len(self._glut):
+                    raise ValueError(
+                        f"the part groups cover {len(self._glut)} parts; "
+                        f"the part map sends joints to parts up to "
+                        f"{part_map.max()}")
                 model_part = self._glut[model_part]
             num_parts = ng
         self.num_parts = num_parts

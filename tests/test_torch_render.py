@@ -10,6 +10,8 @@ within 1e-5 m and the part mask equal.  Lambert within 1 grey level on
 >= 99.9% of pixels.
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -69,15 +71,101 @@ def test_rasterize_cases(case):
 
 
 def test_rasterize_rejects_aliased_face_ids():
-    """The key packs 14 bits of face id; the reference aliases larger
-    meshes silently, the port refuses them."""
+    """The reference's int32 key packs 14 bits of face id and aliases
+    larger meshes silently; the port's key takes as many bits as the face
+    count needs: of 2^14 + 1 faces, the last alone covers a triangle of
+    pixels and is drawn there as itself, not as face 0."""
     F = (1 << traster.FID_BITS) + 1
-    proj = torch.zeros((3, 2))
+    proj = torch.tensor([[0.0, 0.0], [7.0, 0.0], [0.0, 7.0]])
     z = torch.ones(3)
     faces = torch.zeros((F, 3), dtype=torch.int32)
-    with pytest.raises(ValueError, match="2\\^14"):
-        traster.rasterize(proj, z, faces, 8, 8, 64)
-    traster.rasterize(proj, z, faces[:1 << traster.FID_BITS], 8, 8, 64)
+    faces[-1] = torch.tensor([0, 1, 2], dtype=torch.int32)
+    out = traster.rasterize(proj, z, faces, 8, 8, F + 64)
+    assert int(out.n_dropped) == 0
+    # pixel (0, 0): every degenerate face and the last tie; the lowest id
+    assert int(out.fid[0, 0]) == 0
+    assert int((out.fid == F - 1).sum()) > 20
+    assert int(out.fid.max()) == F - 1
+
+
+def _digest(arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def test_raster_keys_up_to_2_14_faces_are_the_int32_keys():
+    g = torch.Generator().manual_seed(3)
+    zq = torch.randint(1, 1 << traster.Z_BITS, (4096,), generator=g,
+                       dtype=torch.int32)
+    for n_faces in (100, 1 << 14):
+        face = torch.randint(0, n_faces, (4096,), generator=g)
+        keys, bits = traster.fragment_keys(zq, face, n_faces)
+        assert bits == 14 and keys.dtype == torch.int64
+        assert torch.equal(keys, (zq << 14) | (face.to(torch.int32) &
+                                               ((1 << 14) - 1)))
+    assert traster.fragment_keys(zq, face, (1 << 14) + 1)[1] == 15
+
+
+def test_raster_outputs_up_to_2_14_faces_stay_the_same():
+    """Every output of a raster of 60 random faces over two frames, to the
+    bit, as the int32 key gave them before the wider key."""
+    rng = np.random.default_rng(5)
+    P, F, H, W = 90, 60, 48, 64
+    proj = torch.as_tensor(rng.uniform([-5, -5], [W + 5, H + 5], (2, P, 2)),
+                           dtype=torch.float32)
+    z = torch.as_tensor(rng.uniform(1.0, 5.0, (2, P)), dtype=torch.float32)
+    faces = torch.as_tensor(np.stack([rng.permutation(P)[:3]
+                                      for _ in range(F)]), dtype=torch.int32)
+    r = traster.rasterize_batch(proj, z, faces, H, W, 200000)
+    assert [t.dtype for t in r] == [torch.int32, torch.float32,
+                                    torch.float32, torch.int32]
+    assert int((r.fid >= 0).sum()) == 5795
+    assert _digest(t.numpy() for t in r) == \
+        "53a21da0eacd887d33b250993d7627dfc235ee5bcb550353d373d7f0c96608f1"
+
+
+def test_raster_past_2_14_faces_is_a_brute_force_zbuffer():
+    """2^14 small faces and 300 large ones over a 32x24 image: the winning
+    face of every pixel is that of a per-pixel search over every face, by
+    the 17-bit depth and then the lowest face id; faces numbered above
+    2^14 win some pixels."""
+    rng = np.random.default_rng(11)
+    H, W, n_small, n_large = 24, 32, 1 << 14, 300
+    F = n_small + n_large
+    centre = np.concatenate([rng.uniform(0, W, (F, 1)),
+                             rng.uniform(0, H, (F, 1))], 1)
+    size = np.r_[np.full(n_small, 2.0), np.full(n_large, 9.0)][:, None, None]
+    angle = rng.uniform(0, 2 * np.pi, (F, 1)) + np.array([0.0, 2.1, 4.2])
+    corners = centre[:, None] + size * np.stack([np.cos(angle),
+                                                 np.sin(angle)], -1)
+    proj = torch.as_tensor(corners.reshape(1, 3 * F, 2), dtype=torch.float32)
+    z = torch.as_tensor(rng.uniform(1.0, 6.0, (1, 3 * F)),
+                        dtype=torch.float32)
+    faces = torch.arange(3 * F, dtype=torch.int32).reshape(F, 3)
+    r = traster.rasterize_batch(proj, z, faces, H, W, 600000)
+    assert int(r.n_dropped[0]) == 0
+
+    yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float32),
+                            torch.arange(W, dtype=torch.float32),
+                            indexing="ij")
+    px, py = xx.reshape(-1, 1), yy.reshape(-1, 1)              # [HW, 1]
+    a, b, c = (proj[0, faces[:, k].long()][None] for k in range(3))
+    w1, w2, w3 = traster._barycentric(px, py, a, b, c)         # [HW, F]
+    za, zb, zc = (z[0, faces[:, k].long()][None] for k in range(3))
+    zi = w1 * za + w2 * zb + w3 * zc
+    inside = (w1 >= -1e-6) & (w2 >= -1e-6) & (w3 >= -1e-6) & (zi > 0)
+    zq = torch.clamp(zi / traster.Z_MAX_DEFAULT * float(1 << traster.Z_BITS),
+                     1.0, float((1 << traster.Z_BITS) - 1)).to(torch.int64)
+    key = torch.where(inside, zq * F + torch.arange(F),
+                      torch.iinfo(torch.int64).max)
+    best = key.min(1).values
+    want = torch.where(best < torch.iinfo(torch.int64).max, best % F, -1)
+    got = r.fid[0].reshape(-1).long()
+    assert torch.equal(got, want)
+    assert (got >= 1 << 14).sum() > 20 and (
+        (got >= 0) & (got < 1 << 14)).sum() > 20
 
 
 H = W = 256

@@ -257,6 +257,40 @@ def test_demo_adds_nothing_to_the_tracker(scene, tmp_path, monkeypatch,
         np.testing.assert_array_equal(joints, r[3])
 
 
+@pytest.mark.parametrize("fused", [False, True])
+def test_demo_partmap_sets_the_forest(scene, tmp_path, monkeypatch, fused):
+    """``--partmap`` sets a ``.partmap`` on the forest the tool loads: an
+    SMPL-X ``model.npz`` (55 joints, 400 shape columns) on a 24-part forest
+    is tracked with ``data/smplx55_smpl24.partmap``, and refused without
+    it, naming both counts."""
+    from test_torch_smplx import _write_smplx_npz
+
+    from avatar_tpu_torch.perception.partgroups import SMPLX55_TO_SMPL24
+
+    ds, trees = scene
+    model_dir = tmp_path / "smplx"
+    _write_smplx_npz(model_dir, 400)
+    args = list(DEMO_ARGS)
+    k = args.index("--synthetic-model")
+    del args[k:k + 2]
+    args += ["--model-dir", str(model_dir), *CPU] + (
+        ["--fused"] if fused else [])
+    with pytest.raises(ValueError, match="up to 54.*24 parts"):
+        tdemo.main([ds, trees[0], *args])
+    log = []
+    module, name = ((ttracking_fused, "FusedTracker") if fused
+                    else (tdemo, "Tracker"))
+    _recording_tracker(monkeypatch, module, name, log, fused)
+    tdemo.main([ds, trees[0], *args, "--partmap",
+                os.path.join(ROOT, "data", "smplx55_smpl24.partmap")])
+    built, got = log[0], log[1:]
+    assert built.model.num_joints() == 55
+    assert built.rtree.part_map == SMPLX55_TO_SMPL24.tolist()
+    assert built.rtree.partmap_type == 0
+    assert len(got) == 3 and all(r[3].shape == (55, 3) for r in got
+                                 if r[0])
+
+
 def test_demo_throughput_is_refused(scene, tmp_path, monkeypatch, capsys):
     """``--throughput 2 --fused`` (refused before the port had a batch
     path) tracks the first frame, then the rest as batches of 2, prints
@@ -420,6 +454,45 @@ def test_data_recording_readable_by_both(tmp_path):
             np.testing.assert_array_equal(getattr(j, name)(i),
                                           getattr(t, name)(i))
         assert (t.depth(i) > 0).all() and t.rgb(i).shape == (360, 640, 3)
+
+
+def test_smplsynth_renders_an_smplx_body(tmp_path):
+    """``smplsynth`` on an SMPL-X ``model.npz`` of the benchmark's SMPL-X
+    body at its configuration's size (20,734 faces, past the reference's
+    2^14-face key) with ``data/smplx55_smpl24.partmap``: the depth and
+    part-mask files equal the port's own ``render_batch``, and the masks
+    hold the 24 parts' labels."""
+    from test_torch_smplx import _write_smplx_npz
+
+    from avatar_tpu_torch.core.model import AvatarModel
+    from avatar_tpu_torch.io import formats
+    from avatar_tpu_torch.io.calibration import CameraIntrin
+    from avatar_tpu_torch.train import synth
+
+    model_dir = tmp_path / "smplx"
+    config = json.loads(open(os.path.join(
+        ROOT, "benchmark", "configs", "fused_smplx_720p.json")).read())
+    arrays = _write_smplx_npz(model_dir, 20, rings=config["model"]["rings"])
+    assert len(arrays["f"]) == 20734
+    partmap = os.path.join(ROOT, "data", "smplx55_smpl24.partmap")
+    out = str(tmp_path / "s")
+    tsynth.main([out, "-n", "2", "--batch", "2", "--seed", "5", *CAM,
+                 "--model-dir", str(model_dir), "--part-map", partmap, *CPU])
+    model = AvatarModel(str(model_dir), device="cpu")
+    src = synth.make_source(model, CameraIntrin(fx=140.0, fy=140.0, cx=80.0,
+                                                cy=80.0),
+                            formats.read_partmap(partmap)[0], n_images=2,
+                            seed=5)
+    depth, mask, _ = synth.render_batch(src, model.parents, [0, 1], 5, 160,
+                                        160, model.num_shape_keys())
+    ds = TDataset(out, pad=8)
+    labels = set()
+    for i in range(2):
+        np.testing.assert_array_equal(ds.depth(i), depth[i].numpy())
+        np.testing.assert_array_equal(ds.part_mask(i), mask[i].numpy())
+        labels |= set(np.unique(mask[i].numpy()).tolist())
+    assert labels - {255} and max(labels - {255}) <= 23
+    assert len(labels - {255}) >= 10
 
 
 def test_smplsynth_files(tmp_path):
