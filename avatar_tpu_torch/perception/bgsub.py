@@ -54,12 +54,8 @@ def _foreground_mask(background: torch.Tensor, image: torch.Tensor,
 def _components(image: torch.Tensor, fg: torch.Tensor, neighb_thresh):
     """Pass 2: gated components of ``fg``.  Returns (labels [H, W] int32
     root ids with -1 background, sizes [H*W])."""
-
-    def gate(vals, shifted):
-        d = (vals - shifted) ** 2
-        return d[..., 0] + d[..., 1] + d[..., 2] <= neighb_thresh
-
-    labels = cc.connected_components(fg, values=image, edge_gate_fn=gate)
+    labels = cc.connected_components(fg, values=image,
+                                     edge_gate_fn=cc.Dist2Gate(neighb_thresh))
     return labels, cc.component_sizes(labels)
 
 

@@ -4,9 +4,13 @@
 Pixels propagate the minimum flat index of their component across gated
 4-neighbour edges, with one pointer-jumping pass (label <- label[label])
 per sweep.  A component's id is the flat index of its first pixel in
-row-major scan order.  The loop reads its ``changed`` flag from the device
-once per sweep, and ``component_sizes``'s ``bincount`` reads its input's
-least and largest value: counted reads (``profiling.host_sync``).
+row-major scan order.  CUDA tensors are labelled by one hand-written
+kernel (``cc_kernel.label``), which runs the same sweeps with no host read
+and whose labels equal the loop's to the bit; CPU tensors by
+``connected_components_plain``, which reads its ``changed`` flag from the
+device once per sweep.  ``component_sizes`` is an integer scatter on the
+card and a ``bincount`` on the CPU, whose reads of its input's least and
+largest value are counted (``profiling.host_sync``).
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import Callable, Optional
 
 import torch
 
+from avatar_tpu_torch.perception import cc_kernel
 from avatar_tpu_torch.profiling import host_sync, scope
 
 _GATES = ((1, 0), (-1, 0), (0, 1), (0, -1))
@@ -32,6 +37,23 @@ def _shift(a: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
     return out
 
 
+class Dist2Gate:
+    """The background subtractors' edge gate: neighbours join when the
+    squared 3-D distance of their XYZ values is at most ``thresh``.  As a
+    callable it is the plain loop's gate; on the card the kernel computes it
+    itself and reads ``thresh`` (a one-element float32 tensor) there."""
+
+    __slots__ = ("thresh",)
+
+    def __init__(self, thresh):
+        self.thresh = thresh
+
+    def __call__(self, vals: torch.Tensor, shifted: torch.Tensor
+                 ) -> torch.Tensor:
+        d = (vals - shifted) ** 2
+        return d[..., 0] + d[..., 1] + d[..., 2] <= self.thresh
+
+
 def connected_components(active: torch.Tensor,
                          edge_gate_fn: Optional[Callable] = None,
                          values: Optional[torch.Tensor] = None,
@@ -39,8 +61,34 @@ def connected_components(active: torch.Tensor,
     """[H, W] int32 labels of ``active`` pixels (-1 inactive).
 
     ``values``: edges only join equal values, or those ``edge_gate_fn(
-    values, shifted_values)`` accepts when it is given.
+    values, shifted_values)`` accepts when it is given.  On the card the
+    kernel takes no gate but a ``Dist2Gate`` (or none, with uint8 or no
+    values) and raises on others; the CPU takes any.
     """
+    if active.device.type == "cpu":
+        return connected_components_plain(active, edge_gate_fn, values,
+                                          max_iters)
+    return cc_kernel.label(active, values, _kernel_thresh(edge_gate_fn),
+                           max_iters)
+
+
+def _kernel_thresh(edge_gate_fn: Optional[Callable]):
+    """The threshold the kernel reads for ``edge_gate_fn`` (None: the
+    equality gate)."""
+    if edge_gate_fn is None:
+        return None
+    if isinstance(edge_gate_fn, Dist2Gate):
+        return edge_gate_fn.thresh
+    raise ValueError(f"the kernel computes its edge gate itself: want None "
+                     f"or a Dist2Gate, got {edge_gate_fn!r}")
+
+
+def connected_components_plain(active: torch.Tensor,
+                               edge_gate_fn: Optional[Callable] = None,
+                               values: Optional[torch.Tensor] = None,
+                               max_iters: int = 64) -> torch.Tensor:
+    """Plain PyTorch version of ``connected_components`` on any device:
+    the sweep loop, eager, reading its ``changed`` flag once per sweep."""
     H, W = active.shape
     dev = active.device
     flat = torch.arange(H * W, dtype=torch.int32, device=dev).reshape(H, W)
@@ -83,6 +131,11 @@ def component_sizes(labels: torch.Tensor) -> torch.Tensor:
     H, W = labels.shape
     flat = labels.reshape(-1)
     idx = torch.where(flat >= 0, flat, H * W).long()
+    if labels.device.type == "cuda":
+        # an integer scatter: exact in any order, and no read of the card
+        ones = torch.ones_like(flat)
+        return torch.zeros(H * W + 1, dtype=torch.int32,
+                           device=labels.device).index_add_(0, idx, ones)[:-1]
     with host_sync(2):
         sizes = torch.bincount(idx, minlength=H * W + 1)
     return sizes[:-1].to(torch.int32)

@@ -131,10 +131,6 @@ def _top_k(score: torch.Tensor, k: int) -> torch.Tensor:
     return torch.argsort(-score, stable=True)[:k]
 
 
-def _sum3(d: torch.Tensor) -> torch.Tensor:
-    return d[..., 0] + d[..., 1] + d[..., 2]
-
-
 def _bg_subtract(xyz_s, bg_s, nn_t, nb_t, min_pts, cc_sub: int = 4,
                  body_z=None, body_gate=None):
     """Strided background subtraction -> foreground mask [Hs, Ws].
@@ -151,10 +147,8 @@ def _bg_subtract(xyz_s, bg_s, nn_t, nb_t, min_pts, cc_sub: int = 4,
         fg_c = fg[::cc_sub, ::cc_sub]
         xyz_c = xyz_s[::cc_sub, ::cc_sub]
 
-    def gate(vals, shifted):
-        return _sum3((vals - shifted) ** 2) <= nb_t * cc_sub
-
-    labels = cc.connected_components(fg_c, values=xyz_c, edge_gate_fn=gate)
+    labels = cc.connected_components(fg_c, values=xyz_c,
+                                     edge_gate_fn=cc.Dist2Gate(nb_t * cc_sub))
     sizes = cc.component_sizes(labels)
     flat = labels.reshape(-1)
     fidx = torch.clamp(flat, min=0).long()

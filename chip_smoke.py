@@ -8,7 +8,7 @@ each (any failure exits non-zero and prints no result):
 
 1. device — the card's name and power limit from nvidia-smi;
 2. build — compiles the hand-written kernels (avatar_tpu_torch/csrc/
-   nn_argmin.cu, forest_walk.cu) from the checkout;
+   nn_argmin.cu, forest_walk.cu, cc_label.cu) from the checkout;
 3. kernel — the kernel against its plain PyTorch version at the fit's
    shapes (N = 8192 steady state and 32768 reinit rows, 6656 model slots,
    14 groups, wildcards and padding): indices equal, d2 within rtol 1e-6,
@@ -34,6 +34,17 @@ each (any failure exits non-zero and prints no result):
    phase 3, the plain version's ms, and the bound: the levels the walks
    visit (32 node bytes and two 4-byte probes each), the pixels read and
    the ids written, over HBM bandwidth;
+3c. cc — the connected-components kernel (``perception/cc_kernel.py``)
+   against its plain version (``cc.connected_components_plain``, the eager
+   sweep loop) on the four calls of the main path, as a steady frame (fixture
+   frame 1) gives them: the fused tracker's ``bgsub`` (60x107, distance
+   gate) and ``blob_suppress`` (the part grid of its tracked window at
+   half the forest's resolution, a strided view: 96x75), the host
+   tracker's at ``demo``'s strides (360x640 each).  Labels and sizes
+   equal to the bit; the loop's sweeps; ``device_ms``, ``host_us`` and
+   ``call_ms`` as in phase 3, the plain version's ms, and the bound: the
+   mask and values read once and the labels written once, over HBM
+   bandwidth;
 4. slice — ``FusedTracker.track`` at 1280x720 with the bench's config, the
    3-tree r5 forest and background subtraction, on the 6 frames of
    tests/fixtures/torch_port_720p.npz (one reinit, then steady state).
@@ -204,8 +215,10 @@ each (any failure exits non-zero and prints no result):
    tracker then runs a reinit and a steady frame again in a pass of its
    own with PyTorch's sync reports on (``set_sync_debug_mode("warn")``).
    Fails unless: each of those frames' ``reads`` equal the
-   synchronisations PyTorch reports for it; the clocked frames equal an
-   unclocked tracker's to the
+   synchronisations PyTorch reports for it, and a steady frame's in
+   ``bgsub`` and ``blob_suppress`` equal ``CARD_CC_READS`` (no sweep
+   flag, no ``bincount``; one connected-components launch in each); the
+   clocked frames equal an unclocked tracker's to the
    bit (theta, labels, diag); the warmed tracker's frames equal a cold
    one's and its state after ``warmup``, and after ``warmup(batch=2)``,
    equals its state before; the metrics log has one line per tracked
@@ -337,10 +350,11 @@ def phase_device():
 
 def phase_build():
     from avatar_tpu_torch.optim import nn_kernel
-    from avatar_tpu_torch.perception import walk_kernel
+    from avatar_tpu_torch.perception import cc_kernel, walk_kernel
 
     for src, build in (("nn_argmin.cu", nn_kernel.build),
-                       ("forest_walk.cu", walk_kernel.build)):
+                       ("forest_walk.cu", walk_kernel.build),
+                       ("cc_label.cu", cc_kernel.build)):
         t0 = time.perf_counter()
         log = build()
         ptxas = [ln.strip() for ln in log.splitlines()
@@ -648,6 +662,110 @@ def phase_walk(scene):
                          call_ms=call_ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by="bytes", pixels=k,
                          trees=n_trees)
+    return rec
+
+
+@contextlib.contextmanager
+def _cc_calls(calls: list):
+    """Record each ``cc.connected_components`` call's arguments (the
+    tensors themselves, views included)."""
+    from avatar_tpu_torch.perception import cc
+
+    real = cc.connected_components
+
+    def recorded(active, edge_gate_fn=None, values=None, max_iters=64):
+        calls.append((active, edge_gate_fn, values, max_iters))
+        return real(active, edge_gate_fn, values, max_iters)
+
+    cc.connected_components = recorded
+    try:
+        yield
+    finally:
+        cc.connected_components = real
+
+
+def phase_cc(scene):
+    """The connected-components kernel against its plain version at the
+    four shapes of the main path, on the inputs a steady frame gives it:
+    the fused tracker's ``bgsub`` (60x107, distance gate) and
+    ``blob_suppress`` (120x214 part grid), and the host tracker's at
+    ``demo``'s strides (360x640 each).  Labels and sizes equal to the bit;
+    times, sweeps and bound.  Returns the records by case."""
+    import torch
+
+    from avatar_tpu_torch import profiling
+    from avatar_tpu_torch.perception import cc, cc_kernel
+    from avatar_tpu_torch.perception.rtree import RTree
+    from avatar_tpu_torch.tracking import Tracker, TrackerConfig
+
+    dev, frames = scene.dev, scene.frames
+    fused = scene.tracker()
+    rtree = RTree(FORESTS[0], device=dev)
+    rtree.partmap_type = 0
+    host = Tracker(scene.model, scene.intrin, (H, W), rtree=rtree,
+                   config=TrackerConfig(**dict(BENCH_CFG, rtree_interval=2)))
+    host.set_background(scene.intrin.depth_to_xyz_np(
+        np.full((H, W), scene.bg_m, np.float32)))
+    xyz = lambda f: scene.intrin.depth_to_xyz_np(f.astype(np.float32) * 1e-3)
+    cases = {}
+    for name, track, seq in (("fused", fused.track, frames[:2]),
+                             ("host", host.track, [xyz(f) for f in
+                                                   frames[:2]])):
+        track(seq[0])
+        calls = []
+        with _cc_calls(calls):
+            if not track(seq[1]).ok:
+                fail(f"[cc] the {name} tracker lost frame 1")
+        if len(calls) != 2:
+            fail(f"[cc] a steady {name} frame labelled {len(calls)} times, "
+                 "not twice")
+        cases[f"{name}_bgsub"], cases[f"{name}_blob_suppress"] = calls
+    torch.cuda.synchronize()
+    rec = {}
+    for name, (active, gate, values, max_iters) in cases.items():
+        run = lambda: cc.connected_components(active, gate, values,
+                                              max_iters)
+        plain = lambda: cc.connected_components_plain(active, gate, values,
+                                                      max_iters)
+        before = cc_kernel.LAUNCHES
+        got = run()
+        with profiling.stage_clock(dev) as clock:
+            ref = plain()
+        torch.cuda.synchronize()
+        if cc_kernel.LAUNCHES != before + 1:
+            fail(f"[cc] {name}: the labelling did not launch its kernel once")
+        if not torch.equal(got, ref):
+            fail(f"[cc] {name}: {int((got != ref).sum())} labels differ "
+                 "from the plain version")
+        if not torch.equal(cc.component_sizes(got).cpu(),
+                           cc.component_sizes(ref.cpu())):
+            fail(f"[cc] {name}: component sizes differ from bincount's")
+        # the plain loop reads its flag once before the sweeps, once after
+        # each
+        sweeps = sum(v["counts"].get("reads", 0)
+                     for v in clock.stages.values()) - 1
+        Hc, Wc = active.shape
+        n = Hc * Wc
+        n_bytes = n * (1 + 4 + (values.element_size() * values[0, 0].numel()
+                                if values is not None else 0))
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        device_ms = _device_ms(run, dev)
+        host_us = _host_us(run)
+        call_ms = _time_ms(run)
+        plain_ms = _time_ms(plain)
+        gate_name = "distance" if gate is not None else "equal parts"
+        n_comp = len(torch.unique(got[got >= 0]))
+        print(f"[cc] {name}: {Hc}x{Wc} ({int((got >= 0).sum())} active, "
+              f"{n_comp} components, {gate_name} gate, "
+              f"{sweeps} sweeps): labels and sizes equal to the plain "
+              f"version; device_ms {device_ms:.5f}, host_us {host_us:.2f}, "
+              f"call_ms {call_ms:.4f}, plain {plain_ms:.3f} ms; bound "
+              f"{bound_ms * 1e3:.3f} us by bytes ({n_bytes} bytes: mask, "
+              f"values, labels)", flush=True)
+        rec[name] = dict(ms=device_ms, device_ms=device_ms, host_us=host_us,
+                         call_ms=call_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by="bytes", pixels=n,
+                         shape=[Hc, Wc], sweeps=sweeps)
     return rec
 
 
@@ -2922,6 +3040,16 @@ LM_SCOPES = ("lbs", "vis", "nn", "weights", "jacobian", "gram", "solve",
              "trial", "sync")
 GRAPHED_LM_SCOPES = ("lbs", "step", "sync")     # a replay is one scope
 SYNC_REPORT = "called a synchronizing CUDA operation"   # PyTorch's warning
+# a steady frame's reads in the scopes that label components, on the card.
+# Gone with the kernel: the loop's flag reads (one before the sweeps and
+# one after each, in ``bgsub/sync`` and ``blob_suppress/sync``: ~18 a fused
+# frame, ~54 a host frame) and ``component_sizes``' ``bincount`` (two in
+# each scope), now an integer scatter.  What stays is the CPU's pins
+# (``tests/test_torch_counters.py``) less the bincount's: the host
+# tracker's thresholds and mask reads in ``bgsub``, its blob filter's
+# copies in ``blob_suppress``.
+CARD_CC_READS = {"fused": {"bgsub": 0, "blob_suppress": 0},
+                 "host": {"bgsub": 4, "blob_suppress": 6}}
 def _fused_outputs(tracker):
     """Keep what every ``_run`` of ``tracker`` returns; the returned
     function reads the last one's (theta, labels, diag) as numpy arrays.
@@ -3082,12 +3210,28 @@ def _hold_reads(tag, path, tracker, track, frames, dev, eager=True):
                              f"reads, {reported} synchronisations reported "
                              "by PyTorch")
                     counted.append(reads)
+                    if i:
+                        _hold_cc_reads(tag, path, clock.stages)
                 if not res.ok or res.reinitialized != (i == 0):
                     fail(f"[{tag}] {path}: witnessed frame {i} ok={res.ok}")
     print(f"[{tag}] {path}: no uncounted synchronisation, and counted reads "
           f"equal PyTorch's sync reports, on a reinit and a steady frame: "
           f"{counted}", flush=True)
     return counted
+
+
+def _hold_cc_reads(tag, path, stages) -> None:
+    """A steady frame labels its components with one kernel launch in each
+    of ``bgsub`` and ``blob_suppress``, whose reads are ``CARD_CC_READS``',
+    and reads no sweep flag."""
+    want = CARD_CC_READS["host" if path.startswith("host") else "fused"]
+    got = {k: stages[k]["counts"].get("reads", 0) for k in want}
+    launches = {k: stages[k]["counts"].get("cc_launches", 0) for k in want}
+    sweeps = sorted(set(stages) & {f"{k}/sync" for k in want})
+    if got != want or set(launches.values()) != {1} or sweeps:
+        fail(f"[{tag}] {path}: a steady frame's reads {got} (want {want}), "
+             f"connected-components launches {launches} (want 1 each), "
+             f"sweep-flag scopes {sweeps} (want none)")
 
 
 def _need_scopes(tag, path, have, fits=("fit",), graphed=False):
@@ -3498,19 +3642,22 @@ def main():
 
     # reproducible runs: the scatter-adds take their deterministic kernels
     torch.use_deterministic_algorithms(True)
-    from avatar_tpu_torch.perception import walk_kernel
+    from avatar_tpu_torch.perception import cc_kernel, walk_kernel
 
     phase_build()
     rec, search = phase_kernel(dev)
     scene = Scene(dev)
     walk_rec = phase_walk(scene)
-    walks = {}
+    cc_rec = phase_cc(scene)
+    walks, ccs = {}, {}
 
     def walked(name, fn, *a):
-        """Run a phase, keeping its walk kernel launches under ``name``."""
-        before = walk_kernel.LAUNCHES
+        """Run a phase, keeping its walk and connected-components kernel
+        launches under ``name``."""
+        before, before_cc = walk_kernel.LAUNCHES, cc_kernel.LAUNCHES
         out = fn(*a)
         walks[name] = walk_kernel.LAUNCHES - before
+        ccs[name] = cc_kernel.LAUNCHES - before_cc
         return out
 
     paths = {"slice": walked("slice", phase_slice, scene)}
@@ -3531,6 +3678,10 @@ def main():
                  "tools", "mesh", "stages"):
         if walks[name] <= 0:
             fail(f"the {name} phase walked no forest through the kernel")
+    for name in ("slice", "host", "stages"):
+        if ccs[name] <= 0:
+            fail(f"the {name} phase labelled no components through the "
+                 "kernel")
     # every recorded launch of each path was held against the plain
     # version, to the last bit
     path_err = max(out[-1] for out in paths.values())
@@ -3570,6 +3721,16 @@ def main():
         "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None, "pixels": r["pixels"], "cases": walk_rec})
+    r = cc_rec["fused_blob_suppress"]
+    kernels.append({
+        "name": "cc_label", "route": "cuda",
+        "source": "avatar_tpu_torch/csrc/cc_label.cu",
+        "replaces": None, "launches": sum(ccs.values()),
+        "launches_by_path": ccs, "max_abs_err": 0,
+        "ms": r["ms"], "device_ms": r["device_ms"], "host_us": r["host_us"],
+        "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None, "pixels": r["pixels"], "cases": cc_rec})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

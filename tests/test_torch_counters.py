@@ -388,7 +388,8 @@ def test_every_sync_of_a_frame_is_a_counted_read(card_scene, monkeypatch,
     synchronisations PyTorch reports for it, and counts the forest walk's
     kernel launches of each steady frame: two on the fused tracker (tree 0
     over the bucket, trees 1-2 over its hard pixels), one on the host
-    tracker."""
+    tracker; and the connected-components kernel's, two on every tracker
+    (``bgsub``, ``blob_suppress``), whose sweeps read nothing."""
     # the clocks' pooled events stay with this test, not with the process
     monkeypatch.setattr(profiling, "_event_pool", [])
     dev = card_scene[0]
@@ -419,5 +420,11 @@ def test_every_sync_of_a_frame_is_a_counted_read(card_scene, monkeypatch,
                         walks = clock.stages["forest_walk"]["counts"]
                         assert walks["walk_launches"] == (
                             1 if path.startswith("host") else 2), path
+                        st = clock.stages
+                        assert [st[k]["counts"].get("cc_launches", 0)
+                                for k in ("bgsub", "blob_suppress")] == \
+                            [1, 1], path
+                        assert not set(st) & {"bgsub/sync",
+                                              "blob_suppress/sync"}, path
                 assert all(r.ok for r in out), (path, mode, i)
             torch.cuda.synchronize()
