@@ -4,16 +4,23 @@ A library goes to ``avatar_tpu_torch/_build/`` (or another directory)
 under a name keyed on a hash of its source and its compiler flags, so a
 changed source is rebuilt.  Processes that build at the same moment (test
 workers) each compile to their own temporary file and move it into place.
+``CudaLibrary`` is the one loader of the hand-written CUDA kernels: their
+build, their ctypes binding and their launch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Sequence
+from typing import Callable, Mapping, Optional, Sequence
+
+import torch
+
+from avatar_tpu_torch.device import current_stream
 
 BUILD = Path(__file__).resolve().parent / "_build"
 # the hand-written CUDA kernels' flags: Hopper's sm_90a, no fused
@@ -66,3 +73,74 @@ def build_cached(src: Path, flags: Sequence[str], stem: str,
         raise RuntimeError(f"{cmd[0]} failed on {src}:\n{proc.stderr}")
     os.replace(tmp, out)
     return out, proc.stdout + proc.stderr
+
+
+class CudaLibrary:
+    """A hand-written CUDA kernel's shared library: ``csrc/<source>``
+    built with ``NVCC_FLAGS`` at its first use into ``BUILD`` (read then,
+    so one assignment to ``build_cache.BUILD`` redirects every kernel) as
+    ``<stem>_<hash>.so``, its C entry points bound through ctypes with the
+    argument types of ``entries``.  An entry returns a CUDA error code (an
+    int) unless ``returns`` names its type."""
+
+    def __init__(self, source: str, stem: str,
+                 entries: Mapping[str, Sequence],
+                 returns: Optional[Mapping[str, type]] = None):
+        self.src = Path(__file__).resolve().parent / "csrc" / source
+        self.stem = stem
+        self.entries = dict(entries)
+        self.returns = dict(returns or {})
+        self._lib = None
+
+    def path(self) -> Path:
+        """Where the library of the current source and flags goes."""
+        return cached_path(self.src, NVCC_FLAGS, self.stem, BUILD)
+
+    def build(self) -> str:
+        """Compile (once per source and flags) and bind the library.
+        Returns the compiler's output (ptxas's register and shared-memory
+        report), or '' when the library was already built."""
+        if self._lib is not None:
+            return ""
+        out, log = build_cached(
+            self.src, NVCC_FLAGS, self.stem,
+            lambda tmp: [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.src)],
+            BUILD)
+        lib = ctypes.CDLL(str(out))
+        for name, argtypes in self.entries.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = self.returns.get(name, ctypes.c_int)
+        self._lib = lib
+        return log
+
+    def entry(self, name: str):
+        """The bound C function ``name``, the library built first."""
+        if self._lib is None:
+            self.build()
+        return getattr(self._lib, name)
+
+    def call(self, name: str, index: int, *args) -> None:
+        """``name(*args)`` with CUDA device ``index`` current; raises on a
+        nonzero return."""
+        fn = self.entry(name)
+        if index == torch.cuda.current_device():
+            rc = fn(*args)
+        else:
+            with torch.cuda.device(index):
+                rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+    def launch(self, name: str, device: torch.device, *args) -> None:
+        """``name(*args, stream)`` on the current stream of ``device``;
+        raises on a nonzero return."""
+        index, stream = stream_of(device)
+        self.call(name, index, *args, stream)
+
+
+def stream_of(device: torch.device) -> tuple[int, int]:
+    """(index, raw handle of its current stream) of CUDA ``device``."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return index, current_stream(index)

@@ -7,9 +7,9 @@ replaces ``_kernel_ranges`` (B1, on every LM step of ``fit``) and
 model axis.  ``nn_match`` is one whole correspondence search (recentring,
 the model's permutation and padding, the argmin, the match rules and the
 match count) as one host call into the same device code; ``correspond``'s
-two searches go through it.  The kernel is built with nvcc at its first
-launch, into ``avatar_tpu_torch/_build/``, as a shared library with plain C
-entry points bound through ctypes.
+two searches go through it.  ``LIBRARY`` (``build_cache.CudaLibrary``)
+builds the kernel with nvcc at its first launch, binds its plain C entry
+points through ctypes and launches them.
 
 The wrappers take the plain version only for tensors on the CPU.  For CUDA
 tensors they launch the kernel or raise; there is no fallback.
@@ -26,18 +26,13 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import threading
-from pathlib import Path
 from typing import NamedTuple, Optional
 
 import torch
 
-from avatar_tpu_torch.build_cache import (BUILD, NVCC_FLAGS, build_cached,
-                                          cached_path, nvcc)
-from avatar_tpu_torch.device import current_stream, want as _want
+from avatar_tpu_torch.build_cache import CudaLibrary, stream_of
+from avatar_tpu_torch.device import want as _want
 
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "nn_argmin.cu"
-_BUILD = BUILD
 _ROWS = 64           # data rows per work unit (csrc/nn_argmin.cu kRows)
 _MAX_CHUNK = 3072    # csrc/nn_argmin.cu kMaxChunk
 _MAX_TILES = 1024    # csrc/nn_argmin.cu kMaxTiles
@@ -48,38 +43,17 @@ _INVALID = -2 ** 31
 
 # searches launched since the last reset, by kernel name
 LAUNCHES = {"nn_argmin_ranges": 0, "nn_argmin": 0}
-_lib = None          # the bound library, once built
 _capture = threading.local()   # .counts: the capture being recorded
 
-
-def library_path() -> Path:
-    """Where the built library of the current source and flags goes."""
-    return cached_path(_SRC, NVCC_FLAGS, "libnn_argmin", _BUILD)
-
-
-def build() -> str:
-    """Compile (once per source and flags) and bind the kernel.  Returns
-    the compiler's output (ptxas register and shared-memory report), or ''
-    when the library was already built."""
-    global _lib
-    if _lib is not None:
-        return ""
-    lib_path, log = build_cached(
-        _SRC, NVCC_FLAGS, "libnn_argmin",
-        lambda out: [nvcc(), *NVCC_FLAGS, "-o", str(out), str(_SRC)],
-        _BUILD)
-    lib = ctypes.CDLL(str(lib_path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.avatar_nn_scratch_bytes.argtypes = [i32, i32]
-    lib.avatar_nn_scratch_bytes.restype = ctypes.c_longlong
-    lib.avatar_nn_argmin_ranges.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
-    lib.avatar_nn_argmin_ranges.restype = i32
-    lib.avatar_nn_match.argtypes = (
-        [ptr] * 2 + [i32] * 2 + [ptr] * 5 + [i32] * 3 + [ptr] * 2 +
-        [i32] * 4 + [ctypes.c_float] + [ptr] * 7)
-    lib.avatar_nn_match.restype = i32
-    _lib = lib
-    return log
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+LIBRARY = CudaLibrary("nn_argmin.cu", "libnn_argmin", {
+    "avatar_nn_scratch_bytes": [_i32, _i32],
+    "avatar_nn_argmin_ranges": [_ptr] * 10 + [_i32] * 5 + [_ptr],
+    "avatar_nn_match": [_ptr] * 2 + [_i32] * 2 + [_ptr] * 5 + [_i32] * 3 +
+                       [_ptr] * 2 + [_i32] * 4 + [ctypes.c_float] +
+                       [_ptr] * 7,
+}, returns={"avatar_nn_scratch_bytes": ctypes.c_longlong})
+build = LIBRARY.build
 
 
 @contextlib.contextmanager
@@ -111,26 +85,26 @@ _scratch_bytes = {}  # (n, pp) -> bytes one launch needs
 def _launch(name: str, entry: str, dev: torch.device, n: int, pp: int,
             head: tuple, tail: tuple) -> None:
     """The one launch site: the C call ``entry(*head, scratch, *tail,
-    stream)`` on the current stream of the tensors' device, its error
-    raised, the search counted under ``name``.  The scratch (packed model,
-    merge keys, tickets) is kept per device and stream: launches of one
-    stream run in order, and every launch resets what it uses.  Under
-    graph capture the scratch is a temporary of the capture instead (from
-    the graph's pool, as every intermediate of the captured step), so no
-    graph holds the address of a scratch that eager work may replace, and
-    the search is counted in the capture's record."""
+    stream)`` on the current stream of the tensors' device (through
+    ``LIBRARY``, which raises its error), the search counted under
+    ``name``.  The scratch (packed model, merge keys, tickets) is kept per
+    device and stream: launches of one stream run in order, and every
+    launch resets what it uses.  Under graph capture the scratch is a
+    temporary of the capture instead (from the graph's pool, as every
+    intermediate of the captured step), so no graph holds the address of a
+    scratch that eager work may replace, and the search is counted in the
+    capture's record."""
     build()
     capturing = torch.cuda.is_current_stream_capturing()
     counts = getattr(_capture, "counts", None)
     if capturing and counts is None:
         raise RuntimeError("a search captured outside captured_launches(): "
                            "its replays would not be counted")
-    index = dev.index if dev.index is not None else \
-        torch.cuda.current_device()
-    stream = current_stream(index)
+    index, stream = stream_of(dev)
     need = _scratch_bytes.get((n, pp))
     if need is None:
-        need = _scratch_bytes[(n, pp)] = _lib.avatar_nn_scratch_bytes(n, pp)
+        need = _scratch_bytes[(n, pp)] = LIBRARY.entry(
+            "avatar_nn_scratch_bytes")(n, pp)
     if capturing:
         scratch = torch.empty(need, dtype=torch.uint8, device=dev)
     else:
@@ -138,14 +112,7 @@ def _launch(name: str, entry: str, dev: torch.device, n: int, pp: int,
         if scratch is None or scratch.numel() < need:
             scratch = _scratch[(index, stream)] = torch.empty(
                 need, dtype=torch.uint8, device=dev)
-    fn = getattr(_lib, entry)
-    if index == torch.cuda.current_device():
-        rc = fn(*head, scratch.data_ptr(), *tail, stream)
-    else:
-        with torch.cuda.device(index):
-            rc = fn(*head, scratch.data_ptr(), *tail, stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    LIBRARY.call(entry, index, *head, scratch.data_ptr(), *tail, stream)
     if capturing:
         counts[name] += 1
     else:

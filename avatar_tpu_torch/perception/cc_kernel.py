@@ -6,9 +6,9 @@ version, ``cc.connected_components_plain``, serves the CPU.  The kernel
 replaces no TPU kernel (the JAX package's labelling is plain jnp): it runs
 the plain loop's sweeps in one launch, with no host read, where the eager
 loop took ~24 launches and one read of its ``changed`` flag a sweep.  Its
-labels equal the loop's to the bit, ``max_iters`` included.  It is built
-with nvcc at its first launch, into ``avatar_tpu_torch/_build/``, as a
-shared library with a plain C entry point bound through ctypes.
+labels equal the loop's to the bit, ``max_iters`` included.  ``LIBRARY``
+(``build_cache.CudaLibrary``) builds it with nvcc at its first launch,
+binds its plain C entry point through ctypes and launches it.
 
 There is no fallback: ``label`` launches the kernel or raises on what the
 kernel does not take.  ``LAUNCHES`` counts launches, and each launch
@@ -19,40 +19,23 @@ that its path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 from typing import Optional
 
 import torch
 
 from avatar_tpu_torch import profiling
-from avatar_tpu_torch.build_cache import (BUILD, NVCC_FLAGS, build_cached,
-                                          nvcc)
-from avatar_tpu_torch.device import current_stream
+from avatar_tpu_torch.build_cache import CudaLibrary
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "cc_label.cu"
 _MAX_PIXELS = 1 << 30
 _ALWAYS, _EQUAL, _DIST2 = 0, 1, 2   # the kernel's gates
 
 LAUNCHES = 0         # labellings launched since the last reset
-_lib = None          # the bound library, once built
 
-
-def build() -> str:
-    """Compile (once per source and flags) and bind the kernel.  Returns
-    the compiler's output, or '' when the library was already built."""
-    global _lib
-    if _lib is not None:
-        return ""
-    lib_path, log = build_cached(
-        _SRC, NVCC_FLAGS, "libcc_label",
-        lambda out: [nvcc(), *NVCC_FLAGS, "-o", str(out), str(_SRC)], BUILD)
-    lib = ctypes.CDLL(str(lib_path))
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.avatar_cc_label.argtypes = [ptr, i64, i64, i32, ptr, i64, i64, i64,
-                                    ptr, i32, i32, i32, ptr, ptr, ptr]
-    lib.avatar_cc_label.restype = i32
-    _lib = lib
-    return log
+_ptr, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIBRARY = CudaLibrary("cc_label.cu", "libcc_label", {
+    "avatar_cc_label": [_ptr, _i64, _i64, _i32, _ptr, _i64, _i64, _i64, _ptr,
+                        _i32, _i32, _i32, _ptr, _ptr, _ptr]})
+build = LIBRARY.build
 
 
 def check(active: torch.Tensor, values: Optional[torch.Tensor],
@@ -117,25 +100,15 @@ def label(active: torch.Tensor, values: Optional[torch.Tensor] = None,
     # the pointer-jump table (n + 1), the changed flag (1), edge bits (n B)
     scratch = torch.empty(n + 2 + (n + 3) // 4, dtype=torch.int32,
                           device=dev)
-    build()
-    index = dev.index if dev.index is not None else \
-        torch.cuda.current_device()
     v_sy = v_sx = v_sc = 0
     if values is not None:
         v_sy, v_sx = values.stride()[:2]
         v_sc = values.stride(2) if gate == _DIST2 else 0
-    args = (active.data_ptr(), *active.stride(), gate,
-            None if values is None else values.data_ptr(), v_sy, v_sx, v_sc,
-            None if thresh is None else thresh.data_ptr(), H, W,
-            int(max_iters), out.data_ptr(), scratch.data_ptr(),
-            current_stream(index))
-    if index == torch.cuda.current_device():
-        rc = _lib.avatar_cc_label(*args)
-    else:
-        with torch.cuda.device(index):
-            rc = _lib.avatar_cc_label(*args)
-    if rc != 0:
-        raise RuntimeError(f"avatar_cc_label launch failed: CUDA error {rc}")
+    LIBRARY.launch(
+        "avatar_cc_label", dev, active.data_ptr(), *active.stride(), gate,
+        None if values is None else values.data_ptr(), v_sy, v_sx, v_sc,
+        None if thresh is None else thresh.data_ptr(), H, W, int(max_iters),
+        out.data_ptr(), scratch.data_ptr())
     LAUNCHES += 1
     profiling.count("cc_launches")
     return out

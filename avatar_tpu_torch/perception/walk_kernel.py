@@ -4,9 +4,9 @@
 ``rtree.walk_pixels_plain``, serves the CPU.  The kernel replaces no TPU
 kernel (the JAX package's walk is plain JAX): it walks a set of trees over
 a set of pixels in one launch where the eager level loop took ~54 launches
-a level.  It is built with nvcc at its first launch, into
-``avatar_tpu_torch/_build/``, as a shared library with a plain C entry
-point bound through ctypes.
+a level.  ``LIBRARY`` (``build_cache.CudaLibrary``) builds it with nvcc
+at its first launch, binds its plain C entry point through ctypes and
+launches it.
 
 There is no fallback: ``walk`` launches the kernel or raises on what the
 kernel does not take.  ``LAUNCHES`` counts launches, and each launch
@@ -17,41 +17,23 @@ that its path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
 from avatar_tpu_torch import profiling
-from avatar_tpu_torch.build_cache import (BUILD, NVCC_FLAGS, build_cached,
-                                          nvcc)
-from avatar_tpu_torch.device import current_stream, want
+from avatar_tpu_torch.build_cache import CudaLibrary
+from avatar_tpu_torch.device import want
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "forest_walk.cu"
-_BUILD = BUILD
 _MAX_TREES = 65535   # the grid's y axis
 
 LAUNCHES = 0         # walks launched since the last reset
-_lib = None          # the bound library, once built
 
-
-def build() -> str:
-    """Compile (once per source and flags) and bind the kernel.  Returns
-    the compiler's output, or '' when the library was already built."""
-    global _lib
-    if _lib is not None:
-        return ""
-    lib_path, log = build_cached(
-        _SRC, NVCC_FLAGS, "libforest_walk",
-        lambda out: [nvcc(), *NVCC_FLAGS, "-o", str(out), str(_SRC)], _BUILD)
-    lib = ctypes.CDLL(str(lib_path))
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.avatar_forest_walk.argtypes = (
-        [ptr] * 6 + [i64, i32, i32] + [ptr] * 4 + [i32, ptr] + [i64] * 6 +
-        [i32, ptr, ptr])
-    lib.avatar_forest_walk.restype = i32
-    _lib = lib
-    return log
+_ptr, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIBRARY = CudaLibrary("forest_walk.cu", "libforest_walk", {
+    "avatar_forest_walk": [_ptr] * 6 + [_i64, _i32, _i32] + [_ptr] * 4 +
+                          [_i32, _ptr] + [_i64] * 6 + [_i32, _ptr, _ptr]})
+build = LIBRARY.build
 
 
 def walk(tree, ys, xs, z, fg, probe_flat, probe_shape, max_depth: int,
@@ -98,24 +80,14 @@ def walk(tree, ys, xs, z, fg, probe_flat, probe_shape, max_depth: int,
         raise ValueError(f"{k} pixels: at most 2^31 - 1")
     out = torch.empty(((t1 - t0,) if stacked else ()) + shape,
                       dtype=torch.int32, device=dev)
-    build()
-    index = dev.index if dev.index is not None else \
-        torch.cuda.current_device()
     (tlx, tly), (brx, bry) = top_left, bot_right
-    args = (tree.u.data_ptr(), tree.v.data_ptr(), tree.thresh.data_ptr(),
-            tree.lnode.data_ptr(), tree.rnode.data_ptr(),
-            tree.leafid.data_ptr(), nodes[-1], t0, t1 - t0, ys.data_ptr(),
-            xs.data_ptr(), z.data_ptr(), fg.data_ptr(), k,
-            probe_flat.data_ptr(), Hp, Wp, int(tlx), int(tly), int(brx),
-            int(bry), int(max_depth), out.data_ptr(), current_stream(index))
-    if index == torch.cuda.current_device():
-        rc = _lib.avatar_forest_walk(*args)
-    else:
-        with torch.cuda.device(index):
-            rc = _lib.avatar_forest_walk(*args)
-    if rc != 0:
-        raise RuntimeError(f"avatar_forest_walk launch failed: CUDA error "
-                           f"{rc}")
+    LIBRARY.launch(
+        "avatar_forest_walk", dev, tree.u.data_ptr(), tree.v.data_ptr(),
+        tree.thresh.data_ptr(), tree.lnode.data_ptr(), tree.rnode.data_ptr(),
+        tree.leafid.data_ptr(), nodes[-1], t0, t1 - t0, ys.data_ptr(),
+        xs.data_ptr(), z.data_ptr(), fg.data_ptr(), k, probe_flat.data_ptr(),
+        Hp, Wp, int(tlx), int(tly), int(brx), int(bry), int(max_depth),
+        out.data_ptr())
     LAUNCHES += 1
     profiling.count("walk_launches")
     return out

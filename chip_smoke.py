@@ -3246,16 +3246,15 @@ def _need_scopes(tag, path, have, fits=("fit",), graphed=False):
 
 def first_track(mode: str) -> None:
     """Child process of the ``stages`` phase: the wall ms of a process's
-    first ``track``, cold (the kernel built into an empty directory inside
-    that call) or after ``warmup`` on the same frame."""
+    first ``track``, cold (every kernel built into an empty directory
+    inside that call) or after ``warmup`` on the same frame."""
     import tempfile
     from pathlib import Path
 
     import torch
 
+    from avatar_tpu_torch import build_cache
     from avatar_tpu_torch.device import get_device
-    from avatar_tpu_torch.optim import nn_kernel
-    from avatar_tpu_torch.perception import walk_kernel
 
     torch.use_deterministic_algorithms(True)
     scene = Scene(get_device("cuda:0"))
@@ -3264,7 +3263,7 @@ def first_track(mode: str) -> None:
     out = dict(mode=mode, warmup_ms=0.0)
     with tempfile.TemporaryDirectory() as tmp:
         if mode == "cold":              # nothing built: nvcc runs
-            nn_kernel._BUILD = walk_kernel._BUILD = Path(tmp)
+            build_cache.BUILD = Path(tmp)
         torch.cuda.synchronize()
         if mode == "warm":
             t0 = time.perf_counter()
@@ -3279,6 +3278,8 @@ def first_track(mode: str) -> None:
         tracker.track(scene.frames[1])
         torch.cuda.synchronize()
         out["second_track_ms"] = (time.perf_counter() - t0) * 1e3
+        out["built"] = sorted(p.name.rsplit("_", 1)[0]
+                              for p in Path(tmp).glob("*.so"))
     out["ok"] = bool(res.ok and res.reinitialized)
     out["pose"] = b"".join(t.cpu().numpy().tobytes()
                            for t in tracker._theta).hex()
@@ -3525,11 +3526,16 @@ def phase_stages(scene):
     if first["cold"]["pose"] != first["warm"]["pose"]:
         fail(f"[{tag}] a warmed process's pose after two frames differs "
              "from a cold process's")
+    kernels = ["libcc_label", "libforest_walk", "libnn_argmin"]
+    if first["cold"]["built"] != kernels:
+        fail(f"[{tag}] the cold first track built {first['cold']['built']}, "
+             f"want {kernels}")
     print(f"[{tag}] " + json.dumps(dict(
         first_track={m: {k: round(v, 1) for k, v in first[m].items()
                          if k.endswith("_ms")} for m in first},
+        cold_built=first["cold"]["built"],
         cold_means="a fresh process, the CUDA context and the model on the "
-        "card, nothing else: its first track builds the kernel with nvcc "
+        "card, nothing else: its first track builds every kernel with nvcc "
         "into an empty directory and loads it",
         poses_equal=True)), flush=True)
     return launches, max_err, lines

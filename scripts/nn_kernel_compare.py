@@ -45,10 +45,9 @@ import chip_smoke as cs  # noqa: E402
 
 def build_old(src: str):
     from avatar_tpu_torch import build_cache
-    from avatar_tpu_torch.optim import nn_kernel
 
-    out = nn_kernel._BUILD / "libnn_argmin_old.so"
-    nn_kernel._BUILD.mkdir(exist_ok=True)
+    out = build_cache.BUILD / "libnn_argmin_old.so"
+    build_cache.BUILD.mkdir(exist_ok=True)
     proc = subprocess.run([build_cache.nvcc(), *build_cache.NVCC_FLAGS, "-o",
                            str(out), src], capture_output=True, text=True)
     if proc.returncode != 0:

@@ -229,19 +229,68 @@ def test_fit_refine_step_matches_reference(refine_setup, planned_nn,
             refine_setup[5].w), atol=1e-4)
 
 
+def _record_last_correspondences(monkeypatch):
+    """Record, for both packages, the inputs of the last
+    ``surface_correspond`` of a ``fit_refine``: the data rows, each row's
+    nearest model vertex and the posed vertices of that linearization."""
+    last = {}
+    port, ref = tsurf.surface_correspond, jsurf.surface_correspond
+
+    def port_spy(data_pts, corr, x, *args, **kw):
+        last["port"] = (data_pts.numpy().copy(), corr.numpy().copy(),
+                        x.numpy().copy())
+        return port(data_pts, corr, x, *args, **kw)
+
+    def keep_ref(data_pts, corr, x):
+        last["ref"] = tuple(np.asarray(a) for a in (data_pts, corr, x))
+
+    def ref_spy(data_pts, corr, x, *args, **kw):
+        jax.debug.callback(keep_ref, data_pts, corr, x)
+        return ref(data_pts, corr, x, *args, **kw)
+
+    monkeypatch.setattr(tsurf, "surface_correspond", port_spy)
+    monkeypatch.setattr(jsurf, "surface_correspond", ref_spy)
+    return last
+
+
 @pytest.mark.parametrize("freeze_shape", [False, True])
-def test_fit_refine_matches_reference(refine_setup, planned_nn,
+def test_fit_refine_matches_reference(refine_setup, planned_nn, monkeypatch,
                                       freeze_shape):
     """Four LM steps under a weak prior.  A round limb's twist about its
     own axis barely moves the surface, so under a weak prior float32
     noise alone sets it (1e-3 apart between the packages, and as far
     apart between the port in float32 and float64).  What the data fix is
-    compared: the match count, the accepted steps, the root position
-    within 1e-4 m and every posed vertex within 0.5 mm."""
+    compared: the accepted steps, the root position within 1e-4 m, every
+    posed vertex within 0.5 mm, and the last linearization's nearest
+    vertex of every data row.
+
+    The same noise moves the posed vertices of the last linearization
+    apart, by up to ~0.1 mm between the packages, and between the port's
+    runs at different CPU thread counts (whose sums round differently).
+    A row whose two nearest vertices lie closer together than that may
+    match either one, and through that vertex's one-ring surface land
+    inside the trim or outside it.  So every row's nearest vertex is
+    compared exactly, except a row where the packages' two choices are
+    within twice the distance those vertices moved between the packages'
+    iterates: there either one is a nearest vertex.  The match counts
+    differ by at most the number of such rows."""
     model = refine_setup[0]
+    last = _record_last_correspondences(monkeypatch)
     (th_j, dg_j), (th_t, dg_t) = _both_refine(
         refine_setup, 1e-2, n_steps=4, freeze_shape=freeze_shape)
-    assert int(dg_t.n_matched) == int(dg_j.n_matched) > 1900
+    (d_t, c_t, x_t), (d_j, c_j, x_j) = last["port"], last["ref"]
+    np.testing.assert_array_equal(d_t, d_j)
+    x_t, x_j = x_t.astype(np.float64), x_j.astype(np.float64)
+    ties = np.nonzero(c_t != c_j)[0]
+    for i in ties:
+        d = d_t[i].astype(np.float64)
+        vs = (c_t[i], c_j[i])
+        gap = abs(np.linalg.norm(d - x_t[vs[0]]) -
+                  np.linalg.norm(d - x_t[vs[1]]))
+        moved = max(np.linalg.norm(x_t[v] - x_j[v]) for v in vs)
+        assert min(vs) >= 0 and gap <= 2 * moved, (i, vs, gap, moved)
+    assert int(dg_j.n_matched) > 1900
+    assert abs(int(dg_t.n_matched) - int(dg_j.n_matched)) <= len(ties)
     assert int(dg_t.inner_iters) == int(dg_j.inner_iters) > 0
     np.testing.assert_allclose(th_t.p.numpy(), np.asarray(th_j.p), atol=1e-4)
     v_j = np.asarray(jlbs(model.params, model.parents, th_j.w, th_j.p,
